@@ -1,0 +1,1 @@
+"""Column physics of the PyTorch port (one module per JAX counterpart)."""

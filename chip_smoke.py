@@ -12,7 +12,23 @@ Phases (any failure exits non-zero):
      the production grid in float32 for 64 columns, three minutes, with
      the kernels' launch counters read around it;
   4. the same port on the card (kernels) against the port on the CPU
-     (plain versions): one column, float64, one minute.
+     (plain versions): one column, float64, one minute;
+  5. the batched-inverse kernel against its plain torch version on the
+     card, float64 and float32, at the stiff chemistry solve's shapes for
+     2048 cells ([8192, 80, 80] aqueous blocks, [2048, 101, 101] Schur
+     complements): equilibrated stage matrices of the tot-shaped
+     mechanism, a diagonally dominant batch and a batch that needs
+     pivoting; times both and torch.linalg.inv beside them;
+  6. chemistry path: GasKernel.integrate (Ros3, block-arrow solver) for
+     2048 cells in float64, one warm 10-s substep and timed substeps, with
+     the inverse kernel's launch counter read around it;
+  7. the chemistry path on the card against the CPU: 16 cells, float64,
+     one substep.
+
+The mechanism of phases 5-7 is the reference's tot mechanism when $MECHDIR
+holds master_gas.eqn and master_aqueous.eqn, else a synthetic stand-in of
+its block shape (mistra_tpu_torch.chemistry.mech.
+write_synthetic_multiphase_mechanism; not the reference's chemistry).
 
 The last two lines are a JSON object of per-kernel results and the
 device line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -20,6 +36,7 @@ device line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -55,6 +72,29 @@ MASS_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
 # devices; a flip of one Newton convergence test (|res| < 1e-6) moves the
 # mean saturation by ~1e-6, which bounds what t, xm1 and ff can move by.
 DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5}
+
+# stiff chemistry solve (phases 5-7)
+DEVICE = "cuda"
+CHEM_CELLS = 2048
+CHEM_DT = 10.0
+CHEM_TIMED = 3
+CHEM_CMP_CELLS = 16
+# batched inverse, kernel against plain on one card, same inputs: the same
+# operations in the same order (no contracted multiply-adds), so they agree
+# up to a differing rounding of the two compilers; relative to the largest
+# entry of the inverse
+LU_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# normwise residual ||A X - I|| / (||A|| ||X||) (infinity norms) of a
+# pivoted elimination is a few m * eps: at most 1.8 m eps on the float32
+# aqueous stage blocks, 0.2 m eps in float64 (plain version, CPU); the
+# bound leaves a margin of ~9
+LU_RES_FACTOR = 16
+# card against CPU, chemistry path, 16 cells, float64, one 10-s substep:
+# relative to each species' largest |y| over the cells.  Both runs hold
+# every step's local error under rtol = 1e-3 of |y|; runs that differ only
+# by rounding agree far closer while they take the same steps, and stay
+# within ~rtol of each other where an accept/reject decision flips
+CHEM_DEVICE_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -250,6 +290,185 @@ def phase_device_vs_cpu(inpdir):
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
 
+def chem_mechanism(tmp: str):
+    """(mechanism, is_reference): $MECHDIR's tot mechanism if it holds the
+    reference's master_gas.eqn and master_aqueous.eqn, else the synthetic
+    stand-in written to tmp."""
+    from mistra_tpu_torch.chemistry.mech import (
+        load_multiphase_mechanism, write_synthetic_multiphase_mechanism)
+    mechdir = os.environ.get("MECHDIR")
+    if mechdir and all(os.path.exists(os.path.join(mechdir, f)) for f in
+                       ("master_gas.eqn", "master_aqueous.eqn")):
+        log(f"mechanism: reference tot mechanism from MECHDIR ({mechdir})")
+        return load_multiphase_mechanism(mechdir, name="tot"), True
+    write_synthetic_multiphase_mechanism(tmp)
+    log("mechanism: synthetic tot-shaped stand-in (MECHDIR has none)")
+    return load_multiphase_mechanism(tmp, name="tot"), False
+
+
+def chem_inputs(mech, reference, cells, dtype, device, seed=0):
+    """(GasKernel, k, fix, y0) for cells with te over 275-295 K, air at
+    1 atm and log-normal concentrations, all drawn from seed with numpy
+    (the same values on every device)."""
+    from mistra_tpu_torch.chemistry.gas_kernel import GasKernel
+    from mistra_tpu_torch.chemistry.rates import RateEnv, probe_dry_extras
+    rng = np.random.default_rng(seed)
+    te = rng.uniform(275.0, 295.0, cells)
+    air = 101325.0 / (8.314 * te)                     # mol/m3
+    y0 = 1e-8 * rng.lognormal(0.0, 1.0, (cells, mech.nvar))
+    # aqueous water of the stand-in's "+ H2Olz" reactions; the reference
+    # mechanism runs dry, as benchmarks/bench_chem.py runs it
+    cols = {"O2": 0.21 * air, "N2": 0.79 * air, "H2O": np.full(cells, 0.5)}
+    aq_water = 0.0 if reference else 1e-2
+    fix = np.stack([cols.get(s, np.full(cells, aq_water))
+                    for s in mech.fixed], axis=-1)
+
+    def dev(x):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    env = RateEnv(te=dev(te), aircc=dev(air * 6.022e17),
+                  h2oppm=dev(np.full(cells, 1.2e4)),
+                  pk=dev(np.full(cells, 101325.0)),
+                  ph_rat=dev(np.full((cells, 47), 1.0e-5)))
+    if reference:
+        env = dataclasses.replace(env, extras=probe_dry_extras(
+            mech, env, torch.zeros(cells, dtype=dtype, device=device)))
+    kern = GasKernel(mech, dtype=dtype, device=device)
+    return kern, kern.rate_constants(env, fix=dev(fix)), dev(fix), dev(y0)
+
+
+def normwise_residual(a, x):
+    """max over the batch of ||A X - I|| / (||A|| ||X||), infinity norms."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    r = (a @ x - eye).abs().sum(-1).amax(-1)
+    na = a.abs().sum(-1).amax(-1)
+    nx = x.abs().sum(-1).amax(-1)
+    return (r / (na * nx)).max().item()
+
+
+def compare_inverse(lu, lu_cuda, a, label):
+    """The inverse kernel against the plain version (and torch.linalg.inv
+    as a reference figure) on one batch; checks and times them."""
+    n, m, _ = a.shape
+    dtype = a.dtype
+    xk = lu_cuda.batched_inv(a)
+    xp = lu.batched_inv_plain(a)
+    xl = torch.linalg.inv(a)
+    torch.cuda.synchronize()
+    rel = ((xk - xp).abs().amax() / xp.abs().amax()).item()
+    res_k, res_l = normwise_residual(a, xk), normwise_residual(a, xl)
+    res_tol = LU_RES_FACTOR * m * torch.finfo(dtype).eps
+    out = dict(
+        max_abs_err=(xk - xp).abs().max().item(), rel_err=rel,
+        tol=LU_TOL[dtype], residual=res_k, linalg_residual=res_l,
+        residual_tol=res_tol,
+        shape=f"{n}x{m}x{m} {str(dtype).replace('torch.', '')} {label}",
+        ms=cuda_ms(lambda: lu_cuda.batched_inv(a), 10),
+        plain_ms=cuda_ms(lambda: lu.batched_inv_plain(a), 2, warmup=1),
+        linalg_ms=cuda_ms(lambda: torch.linalg.inv(a), 5))
+    log(f"batched_inv {out['shape']}: err {out['max_abs_err']:.3e} (rel "
+        f"{rel:.3e}), residual {res_k:.3e} (linalg.inv {res_l:.3e}); "
+        f"{out['ms']:.3f} ms vs plain {out['plain_ms']:.3f} ms, "
+        f"linalg.inv {out['linalg_ms']:.3f} ms")
+    check(bool(torch.isfinite(xk).all()), f"non-finite inverse {label}")
+    check(rel <= LU_TOL[dtype], f"inverse disagrees: {rel} > {LU_TOL[dtype]}")
+    check(res_k <= res_tol, f"inverse residual {res_k} > {res_tol}")
+    return out
+
+
+def phase_lu(mech, reference):
+    """Kernel against plain at the chemistry solve's shapes, both dtypes,
+    three kinds of input; returns the results per (dtype, m, kind)."""
+    from mistra_tpu_torch.chemistry import lu, lu_cuda
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        kern, k, fix, y = chem_inputs(mech, reference, CHEM_CELLS, dtype,
+                                      DEVICE)
+        rng = np.random.default_rng(5)
+        ghinv = torch.tensor(10.0 ** rng.uniform(-0.5, 5.0, CHEM_CELLS),
+                             dtype=dtype, device=DEVICE)
+        blk = kern.block
+        # the equilibrated stage matrices R (ghinv I - J) whose inverses
+        # the solve takes: the aqueous blocks and the Schur complement
+        fact = blk.prepare(blk.assemble(kern.kw_weights(y, k, fix)), ghinv)
+        stage = (fact.abb.reshape(-1, blk.ma, blk.ma), fact.s)
+        del fact, kern
+        for a_stage in stage:
+            n, m, _ = a_stage.shape
+            a_dom = rng.random((n, m, m)) + 4.0 * np.eye(m)
+            a_piv = rng.standard_normal((n, m, m))
+            a_piv[:, np.arange(m // 2), np.arange(m // 2)] = 0.0
+            for kind, a in (("stage", a_stage), ("dominant", a_dom),
+                            ("pivoting", a_piv)):
+                a = torch.as_tensor(a, dtype=dtype, device=DEVICE)
+                out[(dtype, m, kind)] = compare_inverse(lu, lu_cuda, a,
+                                                        kind)
+    return out
+
+
+def phase_chem(mech, reference):
+    """The stiff chemistry solve on the card: GasKernel.integrate for
+    CHEM_CELLS cells in float64, one warm substep then CHEM_TIMED timed
+    ones, each from the last (clamped at 0, as benchmarks/bench_chem.py);
+    returns the inverse kernel's launches."""
+    from mistra_tpu_torch.chemistry import lu_cuda
+    kern, k, fix, y = chem_inputs(mech, reference, CHEM_CELLS,
+                                  torch.float64, DEVICE)
+    check(kern.solver == "block", f"solver {kern.solver}")
+    torch.cuda.synchronize()
+    lu_cuda.reset_counts()
+    iterations, times, steps = 0, [], []
+    for _ in range(1 + CHEM_TIMED):
+        t0 = time.perf_counter()
+        y, info = kern.integrate(y, k, fix, CHEM_DT)
+        y = torch.clamp(y, min=0.0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        nsteps = info["nsteps"].cpu().numpy()
+        steps.append(nsteps)
+        iterations += int(nsteps.max())
+        check(int(info["n_failed"]) == 0, f"{int(info['n_failed'])} cells "
+              "failed")
+        check(bool(info["done"].all()), "cells not done")
+        check(bool(torch.isfinite(y).all()), "non-finite concentrations")
+    launches = lu_cuda.batched_inv.launches
+    check(tuple(y.shape) == (CHEM_CELLS, mech.nvar), f"y shape {y.shape}")
+    # two inverses per Ros3 step attempt, and nothing else calls the kernel
+    check(launches == 2 * iterations,
+          f"batched_inv launches {launches} != 2 x {iterations} iterations")
+    timed = times[1:]
+    rate = CHEM_CELLS * len(timed) / sum(timed)
+    log(f"chemistry path: {CHEM_CELLS} cells, float64, nvar {mech.nvar}, "
+        f"nrxn {mech.nrxn}; substeps {[round(t, 3) for t in times]} s "
+        f"(first warm); {rate:.1f} cell-substeps/s over {len(timed)} timed "
+        f"substeps; Ros3 steps per cell mean/max: warm "
+        f"{steps[0].mean():.1f}/{steps[0].max()}, timed "
+        f"{np.mean(steps[1:]):.1f}/{np.max(steps[1:])}; n_failed 0; "
+        f"batched_inv launches {launches} = 2 x {iterations} iterations")
+    return launches
+
+
+def phase_chem_device_vs_cpu(mech, reference):
+    """Chemistry path on the card (kernel) against the CPU (plain
+    inverse): CHEM_CMP_CELLS cells, float64, one substep."""
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        kern, k, fix, y0 = chem_inputs(mech, reference, CHEM_CMP_CELLS,
+                                       torch.float64, dev, seed=1)
+        y, info = kern.integrate(y0, k, fix, CHEM_DT)
+        check(int(info["n_failed"]) == 0, f"{dev}: cells failed")
+        out[dev] = (y.cpu().numpy(), info["nsteps"].cpu().numpy())
+    ref = out["cpu"][0]
+    scale = np.maximum(np.abs(ref).max(axis=0), 1e-300)
+    err = float((np.abs(out[DEVICE][0] - ref) / scale).max())
+    ndiff = int((out[DEVICE][1] != out["cpu"][1]).sum())
+    log(f"chemistry card vs cpu ({CHEM_CMP_CELLS} cells, float64, one "
+        f"substep): max err {err:.3e} of each species' largest |y| (tol "
+        f"{CHEM_DEVICE_TOL}); nsteps differ in {ndiff} of "
+        f"{CHEM_CMP_CELLS} cells (cpu mean {out['cpu'][1].mean():.1f})")
+    check(err <= CHEM_DEVICE_TOL, f"chemistry card vs CPU {err:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -283,6 +502,11 @@ def main() -> int:
         inpdir = clarke_dir(tmp)
         counts = phase_main(inpdir, bott_cuda)
         phase_device_vs_cpu(inpdir)
+    with tempfile.TemporaryDirectory(prefix="mistra_mech_") as tmp:
+        mech, reference = chem_mechanism(tmp)
+    lu_results = phase_lu(mech, reference)
+    counts["batched_inv"] = phase_chem(mech, reference)
+    phase_chem_device_vs_cpu(mech, reference)
 
     rows = []
     for name, line in (("bott_dwsum", 204), ("bott_advect", 173)):
@@ -290,6 +514,24 @@ def main() -> int:
                      "source": "mistra_tpu_torch/csrc/bott.cu",
                      "replaces": f"mistra_tpu/physics/bott_pallas.py:{line}",
                      "launches": counts[name], **kernels[name]})
+    # the main path's calls: float64 stage matrices, the aqueous blocks
+    # and the Schur complement (one of each per Ros3 step attempt)
+    main_calls = [r for (dt, _, kind), r in lu_results.items()
+                  if dt == torch.float64 and kind == "stage"]
+    rows.append({
+        "name": "batched_inv", "route": "cuda",
+        "source": "mistra_tpu_torch/csrc/lu.cu",
+        "replaces": "mistra_tpu/chemistry/lu_pallas.py:67,100",
+        "launches": counts["batched_inv"],
+        "max_abs_err": max(r["max_abs_err"] for r in main_calls),
+        "ms": sum(r["ms"] for r in main_calls),
+        "plain_ms": sum(r["plain_ms"] for r in main_calls),
+        "linalg_inv_ms": sum(r["linalg_ms"] for r in main_calls),
+        "shape": " + ".join(r["shape"] for r in main_calls),
+        "all": [{k: r[k] for k in ("shape", "rel_err", "residual",
+                                   "linalg_residual", "ms", "plain_ms",
+                                   "linalg_ms")}
+                for r in lu_results.values()]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

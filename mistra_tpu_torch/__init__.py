@@ -1,6 +1,9 @@
 """PyTorch/CUDA port of MISTRA-TPU: the BTZ96 column minute step
 (meteorology + 2-D spectral bin microphysics, chemistry and radiation off)
-on batched columns, with the Bott advection as hand-written CUDA kernels.
+on batched columns, with the Bott advection as hand-written CUDA kernels;
+and the stiff multiphase chemistry solve (``chemistry/``: Ros3 with the
+block-arrow stage solver), whose batched inverse is a hand-written CUDA
+kernel.
 
 Imports torch and numpy only; the JAX package ``mistra_tpu`` is its
 reference and is never imported here.

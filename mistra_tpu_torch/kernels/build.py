@@ -28,12 +28,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# C signatures of csrc/bott.cu
+# C signatures of csrc/bott.cu and csrc/lu.cu
 _SIGNATURES = {
     "bott_advect_f32": [_P, _P, _P, _I, _I, _I, _D, _P],
     "bott_advect_f64": [_P, _P, _P, _I, _I, _I, _D, _P],
     "bott_dwsum_f32": [_P, _P, _P, _P, _I, _I, _I, _D, _P],
     "bott_dwsum_f64": [_P, _P, _P, _P, _I, _I, _I, _D, _P],
+    "batched_inv_f32": [_P, _P, _I, _I, _P],
+    "batched_inv_f64": [_P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -8,11 +8,16 @@ Phases (any failure exits non-zero):
   2. kernels against their plain torch versions on the card, at the
      production shape (100 levels x 70 dry bins rows of 70 bins per
      column), float64 and float32, walk band J in {32, 70}; times both;
-  3. main path: the BTZ96 minute step (mic=T, chem=F, radiation off) at
-     the production grid in float32 for 64 columns, three minutes, with
-     the kernels' launch counters read around it;
+  3. main path: the BTZ96 minute step (mic=T, chem=F, PIFM2 radiation on)
+     at the production grid in float32 for 64 columns, three minutes, with
+     the kernels' launch counters read around them; then the radiation
+     call alone (host clock around synchronised calls, launches per call
+     from torch.profiler) and one minute under torch.profiler;
   4. the same port on the card (kernels) against the port on the CPU
-     (plain versions): one column, float64, one minute;
+     (plain versions): two columns, one at 00:00 and one at 12:00,
+     float64, one minute, radiation fields included;
+  4b. radiation alone: nstrahl on the card against the CPU at the
+     production nrlay, a noon and a midnight column, float64 and float32;
   5. the batched-inverse kernel against its plain torch version on the
      card, float64 and float32, at the stiff chemistry solve's shapes for
      2048 cells ([8192, 80, 80] aqueous blocks, [2048, 101, 101] Schur
@@ -25,10 +30,14 @@ Phases (any failure exits non-zero):
   7. the chemistry path on the card against the CPU: 16 cells, float64,
      one substep.
 
-The mechanism of phases 5-7 is the reference's tot mechanism when $MECHDIR
-holds master_gas.eqn and master_aqueous.eqn, else a synthetic stand-in of
-its block shape (mistra_tpu_torch.chemistry.mech.
-write_synthetic_multiphase_mechanism; not the reference's chemistry).
+The input tables of phases 3-4b are the reference's where $INPDIR holds
+them (clarke.dat; pifm2_171115.dat with the six Mie files), else synthetic
+stand-ins (write_synthetic_clarke_table, write_synthetic_radiation_tables;
+not the reference's values).  The mechanism of phases 5-7 is the
+reference's tot mechanism when $MECHDIR holds master_gas.eqn and
+master_aqueous.eqn, else a synthetic stand-in of its block shape
+(mistra_tpu_torch.chemistry.mech.write_synthetic_multiphase_mechanism; not
+the reference's chemistry).
 
 The last two lines are a JSON object of per-kernel results and the
 device line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -57,6 +66,9 @@ MAIN_COLUMNS = 64
 MAIN_MINUTES = 3
 CMP_COLUMNS = 4
 DT = 10.0
+RAD_REPS = 5
+# the model grid of phases 3-4b: None is GridParams(), the production grid
+GRID = None
 
 # kernel against plain, on one card, same inputs.  The kernels do the plain
 # version's arithmetic expression by expression (no contracted multiply-
@@ -67,11 +79,28 @@ DT = 10.0
 KERNEL_TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 # advect conserves each row's mass of significant bins
 MASS_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
-# card against CPU, one column, float64, one minute: relative to each
+# card against CPU, two columns, float64, one minute: relative to each
 # field's largest magnitude.  Libm and reduction order differ between the
 # devices; a flip of one Newton convergence test (|res| < 1e-6) moves the
 # mean saturation by ~1e-6, which bounds what t, xm1 and ff can move by.
-DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5}
+# The radiation call after the minute sees those states: t moved by 1e-6
+# moves the Planck fluxes (T^4) by 4e-6, hence sk, sl and the band sums of
+# totrad; the heating rate, a layer difference of net fluxes ~400x its
+# size, by up to ~2e-3 of its scale.
+DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "dtrad": 2e-3,
+              "totrad": 1e-4, "sk": 1e-5, "sl": 1e-5}
+# nstrahl alone, card against CPU on the same inputs, relative to each
+# output's largest magnitude.  float64: libm differs by ulps, which the
+# heating rate's difference of fluxes (~400x) and the cancelling a6 of
+# the IR coefficients (~1e-6 relative at dtau ~1e-7) lift to <= ~1e-10.
+# float32: the solve's own float32 error against float64 on the same
+# inputs (tiny grid, CPU) is hr 3.2e-4, totrad 1.5e-3, fnseb 5.5e-7,
+# flgeg 1.3e-3 of the scale (cancellations such as the a6 above, in
+# float32); two devices' float32 results differ by up to about as much
+RAD_TOL = {torch.float64: {"hr": 1e-9, "totrad": 1e-9, "fnseb": 1e-9,
+                           "flgeg": 1e-9},
+           torch.float32: {"hr": 3e-3, "totrad": 3e-3, "fnseb": 1e-4,
+                           "flgeg": 3e-3}}
 
 # stiff chemistry solve (phases 5-7)
 DEVICE = "cuda"
@@ -213,24 +242,85 @@ def phase_kernels(growth, bott_cuda):
                            torch.float32, growth.BAND, seed=1, plain_reps=3)
 
 
-def clarke_dir(tmp: str) -> str:
-    """INPDIR if it holds clarke.dat, else tmp with the synthetic table."""
-    inpdir = os.environ.get("INPDIR")
-    if inpdir and os.path.exists(os.path.join(inpdir, "clarke.dat")):
-        log(f"clarke.dat: reference table from INPDIR ({inpdir})")
-        return inpdir
+def input_dir(tmp: str) -> str:
+    """tmp, holding the input tables of the BTZ96 step: links to INPDIR's
+    reference tables where it holds them, else the synthetic stand-ins
+    (clarke.dat; pifm2_171115.dat with the six Mie files)."""
     from mistra_tpu_torch.physics.surface import write_synthetic_clarke_table
-    write_synthetic_clarke_table(tmp)
-    log("clarke.dat: synthetic stand-in (INPDIR has none)")
+    from mistra_tpu_torch.radiation.tables import (
+        MIE_FILES, PIFM2_FILE, write_synthetic_radiation_tables)
+    inpdir = os.environ.get("INPDIR")
+    for label, files, write in (
+            ("clarke.dat", ("clarke.dat",), write_synthetic_clarke_table),
+            ("radiation tables", (PIFM2_FILE,) + MIE_FILES,
+             write_synthetic_radiation_tables)):
+        if inpdir and all(os.path.exists(os.path.join(inpdir, f))
+                          for f in files):
+            for f in files:
+                os.symlink(os.path.abspath(os.path.join(inpdir, f)),
+                           os.path.join(tmp, f))
+            log(f"{label}: reference tables from INPDIR ({inpdir})")
+        else:
+            write(tmp)
+            log(f"{label}: synthetic stand-in (INPDIR lacks "
+                f"{', '.join(files)})")
     return tmp
+
+
+def model_config(inpdir, dtype):
+    from mistra_tpu_torch import GridParams, MistraConfig
+    return MistraConfig(grid=GRID or GridParams(), dtype=dtype,
+                        inpdir=inpdir, **BTZ96)
+
+
+def count_launches(fn):
+    """(device events, aten ops) of one fn(): the kernels and copies the
+    card ran, from torch.profiler (None if it recorded no device events),
+    and the operators the host dispatched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    ops = sum(1 for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith("aten::"))
+    return (dev or None), ops
+
+
+def profile_minute(model, state):
+    """One minute step under torch.profiler: (state, wall s, device busy
+    s, device events); busy is the union of the kernels' intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = model.minute_step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return state, wall, busy * 1e-6, len(spans)
 
 
 def phase_main(inpdir, bott_cuda):
     """The BTZ96 minute step on the card; returns the launch counts."""
-    from mistra_tpu_torch import MistraConfig, Model
-    cfg = MistraConfig(dtype="float32", inpdir=inpdir, **BTZ96)
-    model = Model(cfg, device="cuda")
+    from mistra_tpu_torch import Model
+    cfg = model_config(inpdir, "float32")
+    model = Model(cfg, device=DEVICE)
     state = model.init_state(MAIN_COLUMNS)
+    check(model._radiation is not None, "no radiation driver")
     torch.cuda.synchronize()
     t_start = state.tim.time.clone()
 
@@ -259,35 +349,136 @@ def phase_main(inpdir, bott_cuda):
     check(counts["bott_dwsum"] >= 6 * MAIN_MINUTES, f"launches {counts}")
     check(counts["bott_advect"] == 6 * MAIN_MINUTES, f"launches {counts}")
 
+    for name in ("dtrad", "totrad", "sk", "sl"):
+        x = getattr(state.rad, name)
+        check(bool(torch.isfinite(x).all()), f"non-finite rad.{name}")
+    check(bool((state.rad.dtrad != 0).any()), "radiation left dtrad zero")
+
     steady = times[1:] if len(times) > 1 else times
     ms = 1e3 * sum(steady) / len(steady)
     log(f"main path: {MAIN_COLUMNS} columns x {MAIN_MINUTES} minutes, "
-        f"float32, production grid; minute step "
-        f"{[round(1e3 * t, 1) for t in times]} ms, steady {ms:.1f} ms = "
-        f"{MAIN_COLUMNS / (ms / 1e3):.2f} column-minutes/s; launches "
-        f"{counts}; max xm2 {state.met.xm2.max().item():.3e} kg/m3")
-    return counts
+        f"float32, grid n={gp.n} nka={gp.nka} nkt={gp.nkt}, radiation on; "
+        f"minute step {[round(1e3 * t, 1) for t in times]} ms, steady "
+        f"{ms:.1f} ms = {MAIN_COLUMNS / (ms / 1e3):.2f} column-minutes/s; "
+        f"launches {counts}; max xm2 {state.met.xm2.max().item():.3e} "
+        f"kg/m3; dtrad range [{state.rad.dtrad.min().item() * 86400:.3f}, "
+        f"{state.rad.dtrad.max().item() * 86400:.3f}] K/day")
+
+    # the radiation call alone, as post_minute makes it
+    rad = model._radiation
+    rad_s = []
+    for _ in range(RAD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rad(state)
+        torch.cuda.synchronize()
+        rad_s.append(time.perf_counter() - t0)
+    dev_events, ops = count_launches(lambda: rad(state))
+    rad_ms = 1e3 * sum(rad_s) / len(rad_s)
+    log(f"radiation call: {MAIN_COLUMNS} columns, float32, nrlay "
+        f"{gp.nrlay}; {[round(1e3 * t, 2) for t in rad_s]} ms, mean "
+        f"{rad_ms:.2f} ms ({100.0 * rad_ms / ms:.1f} % of the steady minute "
+        f"step); per call {dev_events} device events (kernels + copies, "
+        f"torch.profiler), {ops} aten ops")
+    check(ops > 0, "no operators in the radiation call")
+
+    state, wall, busy, events = profile_minute(model, state)
+    log(f"one minute under torch.profiler: wall {1e3 * wall:.1f} ms, device "
+        f"busy {1e3 * busy:.1f} ms ({100.0 * busy / wall:.1f} %), {events} "
+        f"device events")
+    return counts, {"radiation_ms": rad_ms, "radiation_device_events":
+                    dev_events, "radiation_aten_ops": ops,
+                    "minute_ms": ms, "profiled_minute_events": events}
+
+
+def midnight_and_noon(model, B=2):
+    """model's initial state of B columns: column 0 at 00:00 (the BTZ96
+    start) and column 1 at 12:00 local solar time, each with its own
+    solar zenith angle."""
+    from mistra_tpu_torch.model import solar_zenith
+    state = model.init_state(B)
+    lst = state.tim.lst.clone()
+    lst[1] = 12
+    u0 = solar_zenith(lst, state.tim.lmin, model.astro.alat,
+                      model.astro.declin, model.dtype)
+    return state.replace(tim=state.tim.replace(lst=lst),
+                         rad=state.rad.replace(u0=u0))
 
 
 def phase_device_vs_cpu(inpdir):
-    """Port on the card (kernels) against the port on the CPU (plain)."""
-    from mistra_tpu_torch import MistraConfig, Model
-    cfg = MistraConfig(dtype="float64", inpdir=inpdir, **BTZ96)
+    """Port on the card (kernels) against the port on the CPU (plain): a
+    midnight and a noon column, float64, one minute."""
+    from mistra_tpu_torch import Model
+    cfg = model_config(inpdir, "float64")
     out = {}
-    for dev in ("cuda", "cpu"):
+    for dev in (DEVICE, "cpu"):
         model = Model(cfg, device=dev)
-        state = model.minute_step(model.init_state(1))
+        state = model.minute_step(midnight_and_noon(model))
         out[dev] = {k: v.cpu().numpy() for k, v in (
             ("t", state.met.t), ("xm1", state.met.xm1),
-            ("ff", state.micro.ff))}
+            ("ff", state.micro.ff), ("dtrad", state.rad.dtrad),
+            ("totrad", state.rad.totrad), ("sk", state.rad.sk),
+            ("sl", state.rad.sl))}
+    check(out["cpu"]["sk"][1] > 0.0 == out["cpu"]["sk"][0],
+          f"noon/midnight sk {out['cpu']['sk']}")
     errs = {}
     for k, tol in DEVICE_TOL.items():
         ref = out["cpu"][k]
-        errs[k] = float(np.abs(out["cuda"][k] - ref).max()
+        errs[k] = float(np.abs(out[DEVICE][k] - ref).max()
                         / np.abs(ref).max())
         check(errs[k] <= tol, f"{k}: card vs CPU {errs[k]:.3e} > {tol}")
-    log("card vs cpu (1 column, float64, 1 minute) max rel err: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    log("card vs cpu (2 columns at 00:00 and 12:00, float64, 1 minute) max "
+        "rel err: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+
+def phase_radiation(inpdir):
+    """nstrahl on the card against the CPU on the same inputs (a midnight
+    and a noon column at the grid's nrlay), float64 and float32; also
+    float32 against float64 on the card, the solve's own float32 error."""
+    from mistra_tpu_torch import Model
+    from mistra_tpu_torch.radiation.driver import nstrahl
+    model = Model(model_config(inpdir, "float64"), device=DEVICE)
+    state = midnight_and_noon(model)
+    drv = model._radiation
+    tx, px, rhox, xm1x, ts, bea, baa, ga = drv.load_profile(state)
+
+    def flip(x):
+        return torch.flip(x, dims=[-1])
+
+    zeros = torch.zeros_like(bea[:, 0])
+    c = drv._consts(tx.device)
+    args = [flip(tx), flip(px), flip(rhox), flip(xm1x), ts,
+            c["qmo3_td"].expand(2, -1), flip(bea), flip(baa), flip(ga),
+            zeros, zeros, zeros, c["thk_td"].expand(2, -1), state.rad.u0,
+            c["albedo"], c["emis"], c["berayl"]]
+    names = ("hr", "totrad", "fnseb", "flgeg")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for dev in (DEVICE, "cpu"):
+            a = [x.to(dev, dtype) for x in args]
+            out[dtype, dev] = [r.double().cpu().numpy()
+                               for r in nstrahl(drv.pt, *a)]
+
+    def rel(got, ref):
+        return {k: float(np.abs(g - r).max() / np.abs(r).max())
+                for k, g, r in zip(names, got, ref)}
+
+    for dtype in (torch.float64, torch.float32):
+        errs = rel(out[dtype, DEVICE], out[dtype, "cpu"])
+        tol = RAD_TOL[dtype]
+        log(f"nstrahl card vs cpu ({str(dtype).replace('torch.', '')}, 2 "
+            f"columns at 00:00 and 12:00, nrlay {model.cfg.grid.nrlay}) max "
+            f"rel err: " + ", ".join(f"{k} {v:.3e} (tol {tol[k]})"
+                                     for k, v in errs.items()))
+        for k, g in zip(names, out[dtype, DEVICE]):
+            check(np.isfinite(g).all(), f"non-finite nstrahl {k}")
+            check(errs[k] <= tol[k], f"nstrahl {dtype} {k}: card vs CPU "
+                  f"{errs[k]:.3e} > {tol[k]}")
+    own = rel(out[torch.float32, DEVICE], out[torch.float64, DEVICE])
+    log("nstrahl float32 vs float64 on the card (same inputs): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in own.items())
+        + f"; fnseb {out[torch.float64, 'cpu'][2]}, flgeg "
+        f"{out[torch.float64, 'cpu'][3]} W/m2")
 
 
 def chem_mechanism(tmp: str):
@@ -499,9 +690,10 @@ def main() -> int:
 
     kernels = phase_kernels(growth, bott_cuda)
     with tempfile.TemporaryDirectory(prefix="mistra_inp_") as tmp:
-        inpdir = clarke_dir(tmp)
-        counts = phase_main(inpdir, bott_cuda)
+        inpdir = input_dir(tmp)
+        counts, main = phase_main(inpdir, bott_cuda)
         phase_device_vs_cpu(inpdir)
+        phase_radiation(inpdir)
     with tempfile.TemporaryDirectory(prefix="mistra_mech_") as tmp:
         mech, reference = chem_mechanism(tmp)
     lu_results = phase_lu(mech, reference)
@@ -532,6 +724,7 @@ def main() -> int:
                                    "linalg_residual", "ms", "plain_ms",
                                    "linalg_ms")}
                 for r in lu_results.values()]})
+    log(json.dumps({"main_path": main}))
     log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of MISTRA-TPU: the BTZ96 column minute step
-(meteorology + 2-D spectral bin microphysics, chemistry and radiation off)
-on batched columns, with the Bott advection as hand-written CUDA kernels;
-and the stiff multiphase chemistry solve (``chemistry/``: Ros3 with the
+(meteorology + 2-D spectral bin microphysics + PIFM2 radiation, chemistry
+off) on batched columns, with the Bott advection as hand-written CUDA
+kernels and the radiation (``radiation/``) in plain torch; and the stiff
+multiphase chemistry solve (``chemistry/``: Ros3 with the
 block-arrow stage solver), whose batched inverse is a hand-written CUDA
 kernel.
 

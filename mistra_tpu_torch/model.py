@@ -9,13 +9,16 @@ deposition and solar-geometry updates.
 
 There is no jit: every step is eager Python over tensors of B columns on
 the model's device.  Initialisation runs on the host (numpy and torch on
-the CPU) for one column; the state then moves to the device and is
-repeated to B columns.
+the CPU) for one column, the initial radiation call included; the state
+then moves to the device and is repeated to B columns.
 
-Radiation is not ported yet: ``rad.dtrad`` and ``rad.totrad`` stay zero,
-so the radiative heating adds nothing and ``kon`` takes its zero
-absorption branch.  Configurations outside the slice (chem=T, mic=F,
-isurf=1, box and chamber modes) raise.
+PIFM2 radiation (``radiation/``) is on by default, as in the JAX package:
+``init_state`` installs the driver, which reads ``pifm2_171115.dat`` and
+the Mie files from ``cfg.inpdir`` (and raises without them), and
+``post_minute`` calls it after the solar zenith angle.  Set
+``model.radiation_enabled = False`` before ``init_state`` to run without
+it.  Configurations outside the slice (chem=T, mic=F, isurf=1, box and
+chamber modes) raise.
 """
 
 from __future__ import annotations
@@ -99,6 +102,9 @@ class Model:
         self.astro: AstroConsts = solar_constants(cfg)
         self.consts: dict = {}
         self.b0m = None
+        self.radiation_enabled = True
+        self._radiation = None  # installed by init_state
+        self._const_tensors: dict = {}
         # grids and tables in the compute dtype, on the model's device
         self.atm = atm_tensors(self.grids.atm, self.dtype, self.device)
         self.micro = micro_tensors(self.grids.micro, self.dtype, self.device)
@@ -110,14 +116,28 @@ class Model:
         self.b0m = torch.as_tensor(np.asarray(consts["b0m"]),
                                    dtype=self.dtype, device=self.device)
 
+    def const_tensor(self, name: str) -> torch.Tensor:
+        """``consts[name]`` as a tensor of the compute dtype on the model's
+        device, converted once per array installed under that name."""
+        arr = self.consts[name]
+        hit = self._const_tensors.get(name)
+        if hit is None or hit[0] is not arr:
+            hit = (arr, torch.as_tensor(np.asarray(arr), dtype=self.dtype,
+                                        device=self.device))
+            self._const_tensors[name] = hit
+        return hit[1]
+
     # ------------------------------------------------------------------
     def init_state(self, B: int = 1) -> ModelState:
         """Initial state of B identical columns on the model's device
-        (init sequence of str.f90:72-321, radiation and chemistry off)."""
+        (init sequence of str.f90:72-321, chemistry off)."""
         cfg = self.cfg
         cpu = torch.device("cpu")
         state, consts = initial_state(cfg, self.grids, self.clarke)
         self.set_consts(consts)
+        if self.radiation_enabled and self._radiation is None:
+            from .radiation.driver import RadiationDriver
+            self._radiation = RadiationDriver(self)
         atm = atm_tensors(self.grids.atm, self.dtype, cpu)
         turb = atk0(state.met, state.turb, state.surf, atm, cfg.ug, cfg.vg,
                     cfg.z0)
@@ -130,6 +150,9 @@ class Model:
         u0 = solar_zenith(state.tim.lst, state.tim.lmin, self.astro.alat,
                           self.astro.declin, self.dtype)
         state = state.replace(rad=state.rad.replace(u0=u0))
+        # initial radiation call, on the host column
+        if self._radiation is not None:
+            state = self._radiation(state, init=True)
         return repeat_columns(state.to(self.device), B)
 
     # ------------------------------------------------------------------
@@ -158,7 +181,7 @@ class Model:
             nf=cfg.grid.nf)
         state = state.replace(met=met, micro=micro)
 
-        # radiative heating of interior levels (zero while radiation is off)
+        # radiative heating of interior levels
         t = state.met.t
         t = torch.cat([t[:, :1], t[:, 1:n - 1]
                        + state.rad.dtrad[:, 1:n - 1] * dd, t[:, n - 1:]],
@@ -190,13 +213,17 @@ class Model:
         return state.replace(micro=state.micro.replace(vd=vd, xra=xra))
 
     def post_minute(self, state: ModelState) -> ModelState:
-        """Solar geometry (radiation and photolysis are not ported yet)."""
+        """Solar geometry and radiative transfer (per minute; photolysis
+        is not ported yet)."""
         u0 = solar_zenith(state.tim.lst, state.tim.lmin, self.astro.alat,
                           self.astro.declin, self.dtype)
-        return state.replace(rad=state.rad.replace(u0=u0))
+        state = state.replace(rad=state.rad.replace(u0=u0))
+        if self._radiation is not None:
+            state = self._radiation(state, init=False)
+        return state
 
     def minute_step(self, state: ModelState) -> ModelState:
-        """One outer 1-minute step: clock, 6 substeps, solar geometry."""
+        """One outer 1-minute step: clock, 6 substeps, radiation."""
         state = self.pre_minute(state)
         for _ in range(6):
             state = self.substep(state, 10.0)

@@ -407,10 +407,16 @@ def kon(model, state, dt):
         level_mask=sel & dry, collapse=True)
 
     # --- moist branch: condensational growth -------------------------------
-    # radiation is not ported, so there are no Mie absorption efficiencies:
-    # the JAX package's zero-qabs branch (growth.py:634-637)
-    qabs_kr = torch.zeros((gp.mb, gp.nkt, gp.nka), dtype=dtype,
-                          device=device)
+    # Mie absorption efficiencies of the radiation driver, zero without it;
+    # the sticky aerosol-type index of the reference (str.f90:5131)
+    if model.consts.get("qabs") is None:
+        qabs_kr = torch.zeros((gp.mb, gp.nkt, gp.nka), dtype=dtype,
+                              device=device)
+    else:
+        kr = int(model.consts.get("nar", [cfg.iaertyp] * n)[1])
+        if kr == 3 and model.grids.micro.rn[0] < 0.5:
+            kr = 2
+        qabs_kr = model.const_tensor("qabs")[:, :, :, kr - 1]
 
     # only levels 1..nf (reference 2..nf+1) run the growth solve
     lo, hi = 1, nf + 1

@@ -3,9 +3,10 @@ PyTorch port (tests/test_torch_*.py).
 
 Both packages are built on the same tiny grid from the same synthetic
 ``clarke.dat`` (the reference's input tables are not in the repository),
-with radiation off; the JAX state and the constants its init returns are
-carried across to the port with ``state_from_numpy``.  Inputs beyond the
-initial state are made with numpy from a fixed seed.
+with radiation off, or on with the synthetic PIFM2 and Mie tables; the JAX
+state and the constants its init returns are carried across to the port
+with ``state_from_numpy``.  Inputs beyond the initial state are made with
+numpy from a fixed seed.
 """
 
 from __future__ import annotations
@@ -18,7 +19,10 @@ import torch
 import mistra_tpu_torch as pt
 from mistra_tpu.config import GridParams, MistraConfig
 from mistra_tpu.model import Model as JaxModel
+from mistra_tpu.radiation.driver import RadiationDriver as JaxRadiation
 from mistra_tpu_torch.physics.surface import write_synthetic_clarke_table
+from mistra_tpu_torch.radiation.tables import \
+    write_synthetic_radiation_tables
 
 TINY_GRID = dict(nf=20, n_extra=10, nka=16, nkt=16, nb=8)
 # BTZ96 radiation-fog configuration of __graft_entry__, with the inversion
@@ -30,14 +34,29 @@ BTZ96 = dict(chem=False, mic=True, tw=288.15, zinv=100.0, dtinv=7.0, ug=8.5,
 B = 2
 
 
-def make_models(inpdir, dtype="float64"):
-    """(JAX model, port model, JAX initial state) on the tiny grid."""
+def make_models(inpdir, dtype="float64", radiation=False):
+    """(JAX model, port model, JAX initial state) on the tiny grid, with
+    radiation on in both or in neither.
+
+    With radiation the synthetic PIFM2 and Mie tables go into inpdir too,
+    and the JAX init's radiation call is made jitted: the JAX init makes
+    it op by op, which takes ~40 s on a CPU for the same result (the call
+    reads only the state that the rest of the init has made).
+    """
     write_synthetic_clarke_table(inpdir)
+    if radiation:
+        write_synthetic_radiation_tables(inpdir)
     kw = dict(BTZ96, dtype=dtype, inpdir=str(inpdir))
     jm = JaxModel(MistraConfig(grid=GridParams(**TINY_GRID), **kw))
     jm.radiation_enabled = False
     js = jm.init_state()
+    if radiation:
+        jm.radiation_enabled = True
+        jm._radiation = JaxRadiation(jm)
+        jm._radiation.build_static(js)
+        js = jax.jit(jm._radiation)(js)
     tm = pt.Model(pt.MistraConfig(grid=pt.GridParams(**TINY_GRID), **kw))
+    tm.radiation_enabled = radiation
     tm.set_consts(jm.consts)
     return jm, tm, js
 

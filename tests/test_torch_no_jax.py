@@ -1,0 +1,28 @@
+"""The PyTorch port never imports JAX: the machine that runs it on the GPU
+has no JAX.  A fresh interpreter imports the port's package, its
+radiation driver and its chemistry kernel, and finds no jax module."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("module", [
+    "mistra_tpu_torch", "mistra_tpu_torch.radiation.driver",
+    "mistra_tpu_torch.chemistry.gas_kernel"])
+def test_port_imports_no_jax(module):
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'mistra_tpu.')) "
+            "or m == 'mistra_tpu'); print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

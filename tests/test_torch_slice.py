@@ -1,5 +1,6 @@
 """The whole BTZ96 column minute step of the PyTorch port (mic=T, chem=F,
-radiation off) against the JAX package's ``minute_step``, tiny grid."""
+radiation off, and on with the synthetic PIFM2 tables) against the JAX
+package's ``minute_step``, tiny grid."""
 
 from __future__ import annotations
 
@@ -14,7 +15,10 @@ from _torch_parity import (B, BTZ96, TINY_GRID, assert_state_close,
                            to_numpy, to_port, to_port_columns)
 
 import mistra_tpu_torch as pt
+from mistra_tpu.model import solar_zenith
 from mistra_tpu_torch.physics.surface import write_synthetic_clarke_table
+from mistra_tpu_torch.radiation.tables import (
+    MIE_FILES, PIFM2_FILE, write_synthetic_radiation_tables)
 
 # float64.  Each module matches its JAX counterpart to 1e-10 (see the
 # module tests); over whole minutes the one place where last-bit
@@ -75,9 +79,11 @@ def test_float32_minute_stays_float32(tmp_path):
     """The float32 configuration of the entry point: no float64 leaks into
     the state, every field stays finite, the clock advances exactly."""
     write_synthetic_clarke_table(tmp_path)
+    write_synthetic_radiation_tables(tmp_path)
     cfg = pt.MistraConfig(grid=pt.GridParams(**TINY_GRID), dtype="float32",
                           inpdir=str(tmp_path), **BTZ96)
     model = pt.Model(cfg)
+    assert model.radiation_enabled
     state = model.minute_step(model.init_state(3))
     for sub in ("met", "turb", "surf", "micro", "rad", "tim"):
         for name, x in vars(getattr(state, sub)).items():
@@ -88,3 +94,55 @@ def test_float32_minute_stays_float32(tmp_path):
                 assert x.dtype == torch.int32, f"{sub}.{name}"
     assert (state.tim.time.numpy() == 60.0).all()
     assert np.ptp(state.met.t.numpy(), axis=0).max() == 0.0
+
+
+# --------------------------------------------------------------------------
+# radiation on, as the entry point runs the minute step
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rad_models(tmp_path_factory):
+    return make_models(tmp_path_factory.mktemp("inp_rad"), radiation=True)
+
+
+def at_noon(jm, js):
+    """js with the clock at 12:00 local solar time and its solar zenith
+    angle."""
+    tim = js.tim.replace(lst=jnp.int32(12))
+    u0 = solar_zenith(tim.lst, tim.lmin, jm.astro.alat, jm.astro.declin)
+    return js.replace(tim=tim, rad=js.rad.replace(u0=u0))
+
+
+def test_two_minutes_with_radiation_match_jax(rad_models):
+    """The port's init (its radiation call included) matches JAX's; then a
+    noon column and a midnight column, stepped in one batch, each match
+    their own two JAX minutes."""
+    jm, tm, js = rad_models
+    assert_state_close(to_numpy(js), tm.init_state(B), TOL)
+    step = jax.jit(jm.minute_step)
+    states = [at_noon(jm, js), js]
+    ts = to_port_columns(states)
+    for minute in range(2):
+        states = [step(s) for s in states]
+        ts = tm.minute_step(ts)
+        for c, s in enumerate(states):
+            assert_state_close(to_numpy(s), ts.map(lambda x: x[c:c + 1]),
+                               TOL)
+    # the noon column absorbs sunlight at the surface, the midnight one none
+    assert ts.rad.sk[0] > 0.0 and ts.rad.sk[1] == 0.0
+    assert (ts.rad.dtrad[0] != ts.rad.dtrad[1]).any()
+
+
+@pytest.mark.parametrize("missing", [PIFM2_FILE, MIE_FILES[-1]])
+def test_init_state_raises_without_radiation_tables(tmp_path, missing):
+    """With radiation enabled, a missing table raises; it never switches
+    radiation off."""
+    write_synthetic_clarke_table(tmp_path)
+    write_synthetic_radiation_tables(tmp_path)
+    (tmp_path / missing).unlink()
+    cfg = pt.MistraConfig(grid=pt.GridParams(**TINY_GRID),
+                          inpdir=str(tmp_path), **BTZ96)
+    model = pt.Model(cfg)
+    with pytest.raises(FileNotFoundError, match=missing):
+        model.init_state(1)
+    assert model.radiation_enabled

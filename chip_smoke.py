@@ -7,12 +7,17 @@ Phases (any failure exits non-zero):
      CUDA kernels of mistra_tpu_torch/csrc with nvcc;
   2. kernels against their plain torch versions on the card, at the
      production shape (100 levels x 70 dry bins rows of 70 bins per
-     column), float64 and float32, walk band J in {32, 70}; times both;
+     column), float64 and float32, walk band J in {32, 70}; times both
+     and sets each time beside its bound (the least time the card could
+     take: bytes over the memory rate against operations over the peak
+     rate, the larger of the two);
   3. main path: the BTZ96 minute step (mic=T, chem=F, PIFM2 radiation on)
      at the production grid in float32 for 64 columns, three minutes, with
      the kernels' launch counters read around them; then the radiation
      call alone (host clock around synchronised calls, launches per call
-     from torch.profiler) and one minute under torch.profiler;
+     from torch.profiler) and one minute under torch.profiler, with its
+     device time by kernel (key_averages); then both Bott kernels timed on
+     the rows of one more minute's first launches;
   4. the same port on the card (kernels) against the port on the CPU
      (plain versions): two columns, one at 00:00 and one at 12:00,
      float64, one minute, radiation fields included;
@@ -23,7 +28,8 @@ Phases (any failure exits non-zero):
      2048 cells ([8192, 80, 80] aqueous blocks, [2048, 101, 101] Schur
      complements): equilibrated stage matrices of the tot-shaped
      mechanism, a diagonally dominant batch and a batch that needs
-     pivoting; times both and torch.linalg.inv beside them;
+     pivoting; times both and torch.linalg.inv beside them, and sets
+     each time beside its bound;
   6. chemistry path: GasKernel.integrate (Ros3, block-arrow solver) for
      2048 cells in float64, one warm 10-s substep and timed substeps, with
      the inverse kernel's launch counter read around it;
@@ -101,6 +107,18 @@ RAD_TOL = {torch.float64: {"hr": 1e-9, "totrad": 1e-9, "fnseb": 1e-9,
                            "flgeg": 1e-9},
            torch.float32: {"hr": 3e-3, "totrad": 3e-3, "fnseb": 1e-4,
                            "flgeg": 3e-3}}
+
+# the card's peak rates for bound_ms (H100 SXM data sheet, at 700 W): HBM
+# bytes per second; operations per second of float32 outside the tensor
+# cores, and of float64 at the tensor cores' rate (DMMA), its highest
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
+# operations of the Bott kernels: a divide and an add per bin and
+# direction for the prefix sums, and about 100 per significant source bin
+# for the searched walk (~30) and the order-4 Bott split (~70); the
+# deposit's few compares and adds per bin are left out (a lower bound)
+BOTT_SCAN_OPS_PER_BIN = 4
+BOTT_OPS_PER_SOURCE = 100
 
 # stiff chemistry solve (phases 5-7)
 DEVICE = "cuda"
@@ -180,6 +198,27 @@ def bott_inputs(rows: int, nkt: int, dtype, seed: int):
             torch.tensor(e, dtype=dtype, device=dev))
 
 
+def bound(nbytes: float, ops: float, dtype) -> dict:
+    """bound_ms (the larger of bytes over the memory rate and operations
+    over the dtype's peak rate) and what bounds it."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_OPS_PER_S[dtype]
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def bott_bounds(u, z) -> dict:
+    """bound of each Bott kernel on these inputs: advect reads u, z and
+    writes psi; dwsum reads u, z and e and writes one value per row."""
+    rows, nkt = z.shape
+    elt = z.element_size()
+    ops = (BOTT_SCAN_OPS_PER_BIN * z.numel()
+           + BOTT_OPS_PER_SOURCE * int((z >= 1e-32).sum()))
+    return {"bott_advect": bound(3 * z.numel() * elt, ops, z.dtype),
+            "bott_dwsum": bound((2 * z.numel() + nkt + rows) * elt, ops,
+                                z.dtype)}
+
+
 def dwsum_scale(psi, z, e):
     """Per-row magnitude of the terms of dwsum: sum_k (|psi_k|+|z_k|) e_k."""
     return ((psi.abs() + z.abs()) * e).sum(dim=1).clamp(min=1e-300)
@@ -205,24 +244,31 @@ def compare_kernels(growth, bott_cuda, rows, dtype, J, seed, plain_reps):
 
     tol = KERNEL_TOL[dtype]
     shape = f"{rows}x{nkt} {str(dtype).replace('torch.', '')} J={J}"
+    bounds = bott_bounds(u, z)
     out = {
         "bott_advect": dict(
             max_abs_err=(psi_k - psi_p).abs().max().item(), rel_err=rel_a,
             tol=tol, shape=shape,
             ms=cuda_ms(lambda: bott_cuda.bott_advect(DT, u, z, J), 20),
             plain_ms=cuda_ms(lambda: growth.bott_advect_plain(DT, u, z, J),
-                             plain_reps)),
+                             plain_reps),
+            library_ms=None, **bounds["bott_advect"]),
         "bott_dwsum": dict(
             max_abs_err=(dw_k - dw_p).abs().max().item(), rel_err=rel_d,
             tol=tol, shape=shape,
             ms=cuda_ms(lambda: bott_cuda.bott_dwsum(DT, u, z, e, J), 20),
             plain_ms=cuda_ms(
                 lambda: growth.bott_dwsum_plain(DT, u, z, e, J),
-                plain_reps)),
+                plain_reps),
+            library_ms=None, **bounds["bott_dwsum"]),
     }
+    for r in out.values():
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
     log(f"kernels {shape}: " + "; ".join(
         f"{k} err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
-        f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us"
+        f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
+        f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, "
+        f"{100.0 * r['roofline_share']:.1f} %)"
         for k, r in out.items()) + f"; advect mass {mass:.3e}")
     check(rel_a <= tol, f"advect disagrees: {rel_a} > {tol}")
     check(rel_d <= tol, f"dwsum disagrees: {rel_d} > {tol}")
@@ -292,9 +338,21 @@ def count_launches(fn):
     return (dev or None), ops
 
 
+def device_time_by_kernel(prof, top: int = 10) -> list:
+    """[(kernel, launches, device ms)] of the top kernels by device time
+    in prof, from key_averages."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.count, e.self_device_time_total * 1e-3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[2])[:top]
+
+
 def profile_minute(model, state):
     """One minute step under torch.profiler: (state, wall s, device busy
-    s, device events); busy is the union of the kernels' intervals."""
+    s, device events, top kernels by device time); busy is the union of
+    the kernels' intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -311,7 +369,63 @@ def profile_minute(model, state):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return state, wall, busy * 1e-6, len(spans)
+    return state, wall, busy * 1e-6, len(spans), device_time_by_kernel(prof)
+
+
+def main_path_rows(model, state, growth, bott_cuda):
+    """One more minute step, keeping the inputs of its first dwsum and
+    advect launches: what the main path's rows look like (significant
+    bins, walk directions, the deposit's reach) and both kernels' time on
+    them, with dwsum on the same rows emptied (no significant bin: loads
+    and reduction only) as the floor of its time."""
+    kept = {}
+    dwsum, advect = growth.bott_dwsum, growth.bott_bin_advection
+
+    def keep_dwsum(dt, u, z, e, band=growth.BAND):
+        kept.setdefault("dwsum", (dt, u.clone(), z.clone(), e, band))
+        return dwsum(dt, u, z, e, band)
+
+    def keep_advect(dt, u, z, band=growth.BAND):
+        kept.setdefault("advect", (dt, u.clone(), z.clone(), band))
+        return advect(dt, u, z, band)
+
+    growth.bott_dwsum, growth.bott_bin_advection = keep_dwsum, keep_advect
+    try:
+        model.minute_step(state)
+    finally:
+        growth.bott_dwsum, growth.bott_bin_advection = dwsum, advect
+    dt, u, z, e, J = kept["dwsum"]
+    nkt = z.shape[-1]
+    u, z = u.reshape(-1, nkt), z.reshape(-1, nkt)
+    sig = z >= growth.YMIN
+    k_low, k_high, _, _ = growth._bott_split(dt, u, z, J)
+    i = torch.arange(nkt, device=z.device)
+    reach = torch.where(sig, torch.maximum((k_low - i).abs(),
+                                           (k_high - i).abs()), 0).amax(1)
+    both = (sig & (u > 0)).any(1) & (sig & (u < 0)).any(1)
+    dt_a, u_a, z_a, J_a = kept["advect"]
+    out = {"rows": z.shape[0],
+           "rows_with_significant_bin": sig.any(1).float().mean().item(),
+           "significant_bins_per_row": sig.sum(1).float().mean().item(),
+           "rows_walking_both_ways": both.float().mean().item(),
+           "mean_reach": reach.float().mean().item(),
+           "dwsum_ms": cuda_ms(
+               lambda: bott_cuda.bott_dwsum(dt, u, z, e, J), 20),
+           "dwsum_empty_rows_ms": cuda_ms(
+               lambda: bott_cuda.bott_dwsum(dt, u, torch.zeros_like(z), e,
+                                            J), 20),
+           "advect_ms": cuda_ms(
+               lambda: bott_cuda.bott_advect(dt_a, u_a, z_a, J_a), 20)}
+    log(f"main-path rows ({out['rows']} rows of {nkt} bins, float32): "
+        f"{100.0 * out['rows_with_significant_bin']:.1f} % with a "
+        f"significant bin, {out['significant_bins_per_row']:.2f} "
+        f"significant bins per row, "
+        f"{100.0 * out['rows_walking_both_ways']:.1f} % walking both ways, "
+        f"mean reach {out['mean_reach']:.2f} bins; dwsum "
+        f"{out['dwsum_ms']:.4f} ms (the same rows emptied "
+        f"{out['dwsum_empty_rows_ms']:.4f} ms), advect "
+        f"{out['advect_ms']:.4f} ms")
+    return out
 
 
 def phase_main(inpdir, bott_cuda):
@@ -382,13 +496,25 @@ def phase_main(inpdir, bott_cuda):
         f"torch.profiler), {ops} aten ops")
     check(ops > 0, "no operators in the radiation call")
 
-    state, wall, busy, events = profile_minute(model, state)
+    state, wall, busy, events, top = profile_minute(model, state)
     log(f"one minute under torch.profiler: wall {1e3 * wall:.1f} ms, device "
         f"busy {1e3 * busy:.1f} ms ({100.0 * busy / wall:.1f} %), {events} "
-        f"device events")
+        f"device events; device time by kernel (key_averages):")
+    for name, calls, kms in top:
+        log(f"  {kms:9.3f} ms {100.0 * kms / (1e3 * busy):5.1f} % of busy "
+            f"{100.0 * kms / (1e3 * wall):5.1f} % of wall  {calls:6d} x "
+            f"{name[:90]}")
+    from mistra_tpu_torch.physics import growth
+    rows = main_path_rows(model, state, growth, bott_cuda)
     return counts, {"radiation_ms": rad_ms, "radiation_device_events":
                     dev_events, "radiation_aten_ops": ops,
-                    "minute_ms": ms, "profiled_minute_events": events}
+                    "minute_ms": ms, "profiled_minute_events": events,
+                    "profiled_minute_wall_ms": 1e3 * wall,
+                    "profiled_minute_busy_ms": 1e3 * busy,
+                    "profiled_minute_top_kernels": [
+                        {"kernel": n, "launches": c, "ms": t}
+                        for n, c, t in top],
+                    "main_path_rows": rows}
 
 
 def midnight_and_noon(model, B=2):
@@ -542,6 +668,8 @@ def compare_inverse(lu, lu_cuda, a, label):
     as a reference figure) on one batch; checks and times them."""
     n, m, _ = a.shape
     dtype = a.dtype
+    # reads A, writes X; Gauss-Jordan does ~m^3 multiply-adds per matrix
+    bnd = bound(2 * a.numel() * a.element_size(), 2.0 * n * m ** 3, dtype)
     xk = lu_cuda.batched_inv(a)
     xp = lu.batched_inv_plain(a)
     xl = torch.linalg.inv(a)
@@ -556,11 +684,14 @@ def compare_inverse(lu, lu_cuda, a, label):
         shape=f"{n}x{m}x{m} {str(dtype).replace('torch.', '')} {label}",
         ms=cuda_ms(lambda: lu_cuda.batched_inv(a), 10),
         plain_ms=cuda_ms(lambda: lu.batched_inv_plain(a), 2, warmup=1),
-        linalg_ms=cuda_ms(lambda: torch.linalg.inv(a), 5))
+        library_ms=cuda_ms(lambda: torch.linalg.inv(a), 5), **bnd)
+    out["roofline_share"] = out["bound_ms"] / out["ms"]
     log(f"batched_inv {out['shape']}: err {out['max_abs_err']:.3e} (rel "
         f"{rel:.3e}), residual {res_k:.3e} (linalg.inv {res_l:.3e}); "
         f"{out['ms']:.3f} ms vs plain {out['plain_ms']:.3f} ms, "
-        f"linalg.inv {out['linalg_ms']:.3f} ms")
+        f"linalg.inv {out['library_ms']:.3f} ms, bound "
+        f"{out['bound_ms']:.3f} ms ({out['bound_by']}, "
+        f"{100.0 * out['roofline_share']:.1f} %)")
     check(bool(torch.isfinite(xk).all()), f"non-finite inverse {label}")
     check(rel <= LU_TOL[dtype], f"inverse disagrees: {rel} > {LU_TOL[dtype]}")
     check(res_k <= res_tol, f"inverse residual {res_k} > {res_tol}")
@@ -601,7 +732,7 @@ def phase_chem(mech, reference):
     """The stiff chemistry solve on the card: GasKernel.integrate for
     CHEM_CELLS cells in float64, one warm substep then CHEM_TIMED timed
     ones, each from the last (clamped at 0, as benchmarks/bench_chem.py);
-    returns the inverse kernel's launches."""
+    returns the inverse kernel's launches and the Ros3 loop iterations."""
     from mistra_tpu_torch.chemistry import lu_cuda
     kern, k, fix, y = chem_inputs(mech, reference, CHEM_CELLS,
                                   torch.float64, DEVICE)
@@ -636,7 +767,7 @@ def phase_chem(mech, reference):
         f"{steps[0].mean():.1f}/{steps[0].max()}, timed "
         f"{np.mean(steps[1:]):.1f}/{np.max(steps[1:])}; n_failed 0; "
         f"batched_inv launches {launches} = 2 x {iterations} iterations")
-    return launches
+    return launches, iterations
 
 
 def phase_chem_device_vs_cpu(mech, reference):
@@ -697,7 +828,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="mistra_mech_") as tmp:
         mech, reference = chem_mechanism(tmp)
     lu_results = phase_lu(mech, reference)
-    counts["batched_inv"] = phase_chem(mech, reference)
+    counts["batched_inv"], ros3_iterations = phase_chem(mech, reference)
     phase_chem_device_vs_cpu(mech, reference)
 
     rows = []
@@ -705,24 +836,33 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": "mistra_tpu_torch/csrc/bott.cu",
                      "replaces": f"mistra_tpu/physics/bott_pallas.py:{line}",
-                     "launches": counts[name], **kernels[name]})
+                     "launches": counts[name],
+                     "launches_per_minute": counts[name] / MAIN_MINUTES,
+                     "main_path_rows_ms": main["main_path_rows"][
+                         name.replace("bott_", "") + "_ms"],
+                     **kernels[name]})
     # the main path's calls: float64 stage matrices, the aqueous blocks
     # and the Schur complement (one of each per Ros3 step attempt)
     main_calls = [r for (dt, _, kind), r in lu_results.items()
                   if dt == torch.float64 and kind == "stage"]
+    inv = {k: sum(r[k] for r in main_calls)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     rows.append({
         "name": "batched_inv", "route": "cuda",
         "source": "mistra_tpu_torch/csrc/lu.cu",
         "replaces": "mistra_tpu/chemistry/lu_pallas.py:67,100",
         "launches": counts["batched_inv"],
+        "launches_per_ros3_iteration":
+            counts["batched_inv"] / ros3_iterations,
         "max_abs_err": max(r["max_abs_err"] for r in main_calls),
-        "ms": sum(r["ms"] for r in main_calls),
-        "plain_ms": sum(r["plain_ms"] for r in main_calls),
-        "linalg_inv_ms": sum(r["linalg_ms"] for r in main_calls),
+        **inv,
+        "bound_by": "+".join(sorted({r["bound_by"] for r in main_calls})),
+        "roofline_share": inv["bound_ms"] / inv["ms"],
         "shape": " + ".join(r["shape"] for r in main_calls),
         "all": [{k: r[k] for k in ("shape", "rel_err", "residual",
                                    "linalg_residual", "ms", "plain_ms",
-                                   "linalg_ms")}
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "roofline_share")}
                 for r in lu_results.values()]})
     log(json.dumps({"main_path": main}))
     log(json.dumps({"kernels": rows}))

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import resolve_device
 from .lu import batched_inv
 
 
@@ -53,10 +54,10 @@ class BlockArrowSolver:
     Jacobian context is the tuple of dense block arrays from ``assemble``.
     """
 
-    def __init__(self, mech, dtype=torch.float32, device="cpu"):
+    def __init__(self, mech, dtype=torch.float32, device="cuda"):
         self.mech = mech
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         blk = np.asarray(mech.species_bin[:mech.nvar])
         bins = sorted(b for b in set(blk.tolist()) if b != 0)
         self.nbin = len(bins)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import resolve_device
 from .mech import MAX_REACTANTS, Mechanism
 from .rates import RateEnv, make_namespace
 from . import rosenbrock
@@ -29,11 +30,11 @@ class GasKernel:
     # sets, is not ported)
     SPARSE_NVAR_MAX = 300
 
-    def __init__(self, mech: Mechanism, dtype=torch.float64, device="cpu",
+    def __init__(self, mech: Mechanism, dtype=torch.float64, device="cuda",
                  solver: str | None = None):
         self.mech = mech
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.nvar = mech.nvar
         self.nfix = len(mech.fixed)
         self.stoich = torch.as_tensor(mech.stoich, dtype=dtype,

@@ -36,6 +36,7 @@ from .init import AstroConsts, initial_state, solar_constants
 from .physics import diffusion, growth, microphysics, sedimentation, surface
 from .physics.turbulence import atk0
 from .state import ModelState, repeat_columns, torch_dtype
+from .utils import resolve_device
 
 
 def solar_zenith(lst, lmin, alat, declin, dtype=torch.float64):
@@ -77,13 +78,14 @@ class Model:
     Args:
       cfg: the run configuration (mic=True, chem=False, isurf=0, neither
         box nor chamber mode).
-      device: where the state and every step run ("cpu" or "cuda").
+      device: where the state and every step run: the card by default
+        (raises on a host without one); "cpu" runs the plain versions.
       band: Bott walk band J (walks longer than J bins per substep are
         clamped; J >= nkt is exact).
       newton_iters: bound of subkon's Newton iteration.
     """
 
-    def __init__(self, cfg: MistraConfig, device="cpu",
+    def __init__(self, cfg: MistraConfig, device="cuda",
                  band: int = growth.BAND,
                  newton_iters: int = growth.NEWTON_ITERS):
         unported = {"chem=True": cfg.chem, "mic=False": not cfg.mic,
@@ -93,7 +95,7 @@ class Model:
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg)
         self.band = band
         self.newton_iters = newton_iters

@@ -60,6 +60,39 @@ def therm_conduct_air(t):
 # Bott flux-form advection along the (log-equidistant) water-mass axis
 # --------------------------------------------------------------------------
 
+def _walk_prefix(u):
+    """(pos, S, P) of rows u [..., nkt]: u > 0, and the time after crossing
+    bin k (S) and bin k-1 (P) of a particle crossing bin k in time 1/u_k
+    (0 where u_k <= 0)."""
+    pos = u > 0.0
+    inv = torch.where(pos, 1.0 / torch.where(pos, u, 1.0), 0.0)
+    # accumulated in float64 whatever the dtype: in float32 the walk's time
+    # differences are ill-conditioned against the summation order (tiny |u|
+    # give huge 1/u), which differs between a sequential and a parallel
+    # scan; a float64 sum rounded once is the same for every order, so the
+    # CUDA kernel and this version agree
+    S = torch.cumsum(inv, dim=-1, dtype=torch.float64).to(u.dtype)
+    return pos, S, S - inv
+
+
+def _walk_searches(S, target, pos, J):
+    """(count, run) of the band searches, as loops over d < J:
+    count_d: prefix-monotone indicator S[i+d] < target[i] (kstar = i+count);
+    run_d:   consecutive positive-u run from bin i+1 (b = i+1+run)."""
+    nkt = S.shape[-1]
+    i = torch.arange(nkt, device=S.device)
+    count = torch.zeros(S.shape, dtype=torch.int64, device=S.device)
+    run = torch.zeros_like(count)
+    q = torch.ones_like(pos)
+    for d in range(J):
+        Sd = torch.roll(S, -d, dims=-1)
+        count = count + ((i + d < nkt) & (Sd < target))
+        pos_d = torch.roll(pos, -(d + 1), dims=-1) & (i + d + 1 < nkt)
+        q = q & pos_d
+        run = run + q
+    return count, run
+
+
 def _walk_rightward_banded(dt, u, J):
     """Final position of source bins with u > 0 (others: garbage, masked
     by the caller).  A particle crosses bin k in time 1/u_k while u stays
@@ -72,28 +105,8 @@ def _walk_rightward_banded(dt, u, J):
     nkt = u.shape[-1]
     dtype = u.dtype
     i = torch.arange(nkt, device=u.device)
-    pos = u > 0.0
-    inv = torch.where(pos, 1.0 / torch.where(pos, u, 1.0), 0.0)
-    # time after crossing bin k, accumulated in float64 whatever the dtype:
-    # in float32 the walk's time differences are ill-conditioned against
-    # the summation order (tiny |u| give huge 1/u), which differs between
-    # a sequential and a parallel scan; a float64 sum rounded once is the
-    # same for every order, so the CUDA kernel and this version agree
-    S = torch.cumsum(inv, dim=-1, dtype=torch.float64).to(dtype)
-    P = S - inv                               # time after crossing bin k-1
-    target = P + (dt - _WALK_EPS)
-
-    # count_d: prefix-monotone indicator S[i+d] < t[i]  ->  kstar = i+count
-    # run_d:   consecutive positive-u run from bin i+1   ->  b = i+1+run
-    count = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
-    run = torch.zeros_like(count)
-    q = torch.ones_like(pos)
-    for d in range(J):
-        Sd = torch.roll(S, -d, dims=-1)
-        count = count + ((i + d < nkt) & (Sd < target))
-        pos_d = torch.roll(pos, -(d + 1), dims=-1) & (i + d + 1 < nkt)
-        q = q & pos_d
-        run = run + q
+    pos, S, P = _walk_prefix(u)
+    count, run = _walk_searches(S, P + (dt - _WALK_EPS), pos, J)
     kstar = i + count
     b = i + 1 + run
     b_inf = b >= nkt                          # all-positive to the grid top
@@ -134,25 +147,15 @@ def _walk_banded(dt, u, J):
     return torch.where(u == 0.0, i, torch.where(u > 0.0, x_right, x_left))
 
 
-def bott_advect_plain(dt, u, z, band=BAND):
-    """Advect bin contents z along the bin axis with velocities u.
-
-    u, z: [..., nkt] (u broadcast to z's shape).  Returns [..., nkt].  Bins
-    with fewer than YMIN particles are dropped, matching the reference's
-    significance cutoff.  Each source bin's content is traced along the
-    characteristic, then deposited onto the two bracketing destination
-    bins with a Bott polynomial (order 1/2/4 by source position) for the
-    fractional part; the deposit is a banded shift-accumulate over
-    offsets |d| <= J+2, with off-band overshoots routed to the edge bins.
-    """
+def _bott_split(dt, u, z, J):
+    """(k_low, k_high, w_lo, w_hi) [..., nkt]: the two destination bins of
+    each source bin's walk and the contents it deposits there (Bott
+    polynomial of order 1/2/4 by source position, 0 for bins with fewer
+    than YMIN particles)."""
     nkt = z.shape[-1]
-    dtype = z.dtype
     i = torch.arange(nkt, device=z.device)
-    u = torch.broadcast_to(u.to(dtype), z.shape)
-    J = min(band, nkt)
     x0 = _walk_banded(dt, u, J)
 
-    # ---- Bott polynomial split of the fractional position ----------------
     k_low = torch.floor(x0)
     c0 = x0 - k_low
     k_low = torch.clamp(k_low.long(), 0, nkt - 1)
@@ -189,8 +192,27 @@ def bott_advect_plain(dt, u, z, band=BAND):
     x1 = torch.where(c0 > 0.0, x1, 0.0)
 
     active_src = z >= YMIN
-    w_lo = torch.where(active_src, z - x1, 0.0)
-    w_hi = torch.where(active_src, x1, 0.0)
+    return (k_low, k_high, torch.where(active_src, z - x1, 0.0),
+            torch.where(active_src, x1, 0.0))
+
+
+def bott_advect_plain(dt, u, z, band=BAND):
+    """Advect bin contents z along the bin axis with velocities u.
+
+    u, z: [..., nkt] (u broadcast to z's shape).  Returns [..., nkt].  Bins
+    with fewer than YMIN particles are dropped, matching the reference's
+    significance cutoff.  Each source bin's content is traced along the
+    characteristic, then deposited onto the two bracketing destination
+    bins with a Bott polynomial (order 1/2/4 by source position) for the
+    fractional part; the deposit is a banded shift-accumulate over
+    offsets |d| <= J+2, with off-band overshoots routed to the edge bins.
+    """
+    nkt = z.shape[-1]
+    dtype = z.dtype
+    i = torch.arange(nkt, device=z.device)
+    u = torch.broadcast_to(u.to(dtype), z.shape)
+    J = min(band, nkt)
+    k_low, k_high, w_lo, w_hi = _bott_split(dt, u, z, J)
 
     # ---- banded shift-accumulate deposit -----------------------------------
     # source bin i deposits at i+d for |d| <= D; a roll wraps a lane only

@@ -55,7 +55,8 @@ def make_models(inpdir, dtype="float64", radiation=False):
         jm._radiation = JaxRadiation(jm)
         jm._radiation.build_static(js)
         js = jax.jit(jm._radiation)(js)
-    tm = pt.Model(pt.MistraConfig(grid=pt.GridParams(**TINY_GRID), **kw))
+    tm = pt.Model(pt.MistraConfig(grid=pt.GridParams(**TINY_GRID), **kw),
+                  device="cpu")
     tm.radiation_enabled = radiation
     tm.set_consts(jm.consts)
     return jm, tm, js

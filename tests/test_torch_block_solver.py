@@ -47,7 +47,7 @@ def kernels(jnp, tmp_path_factory):
     mt = tmech.load_multiphase_mechanism(d, bins=BINS)
     kj = GasKernel(load_multiphase_mechanism(d, bins=BINS),
                    dtype=jnp.float64)
-    kt = tgk.GasKernel(mt, dtype=torch.float64)
+    kt = tgk.GasKernel(mt, dtype=torch.float64, device="cpu")
     assert kj.solver == kt.solver == "block"
     return kj, kt, mt
 

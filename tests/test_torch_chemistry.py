@@ -76,9 +76,9 @@ def test_default_stand_in_has_the_tot_block_shape(tmp_path):
                                                           80])
     # block-arrow: no reaction couples two bins (the solver raises if one
     # does), and the kernel picks the block solver
-    solver = BlockArrowSolver(mech, dtype=torch.float64)
+    solver = BlockArrowSolver(mech, dtype=torch.float64, device="cpu")
     assert (solver.nbin, solver.ma, solver.mg) == (4, 80, 101)
-    assert tgk.GasKernel(mech).solver == "block"
+    assert tgk.GasKernel(mech, device="cpu").solver == "block"
     # only constants, farr and farr2; the text says what it is
     for rx in mech.reactions:
         assert rx.rate_expr.split("(")[0] in ("farr", "farr2") or \
@@ -157,7 +157,7 @@ def test_rate_constants_match_jax(jchem):
     kj = np.asarray(jchem["gas_kernel"].GasKernel(mj).rate_constants(
         jax_env(env, xhal=0.7, xiod=0.3),
         fix=jchem["jnp"].asarray(fix)))
-    kt = tgk.GasKernel(mt).rate_constants(
+    kt = tgk.GasKernel(mt, device="cpu").rate_constants(
         torch_env(env, xhal=0.7, xiod=0.3), fix=torch.tensor(fix))
     assert kt.dtype == torch.float64 and kt.shape == (6, mt.nrxn)
     kt = kt.numpy()
@@ -185,7 +185,7 @@ def test_probe_dry_extras_matches_jax(jchem):
                                  torch.zeros(3, dtype=torch.float64))
     assert set(et) == set(ej) == {"xliq1", "yxkmt", "ind_b", "fdhet_a",
                                   "xhet1"}
-    kt = tgk.GasKernel(mt).rate_constants(torch_env(env, extras=et))
+    kt = tgk.GasKernel(mt, device="cpu").rate_constants(torch_env(env, extras=et))
     assert np.array_equal(kt.numpy(), np.tile([0.0, 2.0, 0.0], (3, 1)))
 
 
@@ -214,7 +214,8 @@ def test_fun_jac_weights_match_jax(jchem, small_pair):
     y, k, fix = random_state(mt, 5, 2)
     kj = jchem["gas_kernel"].GasKernel(mj, dtype=jnp.float64,
                                        solver="dense")
-    kt = tgk.GasKernel(mt, dtype=torch.float64, solver="dense")
+    kt = tgk.GasKernel(mt, dtype=torch.float64, solver="dense",
+                          device="cpu")
     ja = [jnp.asarray(a) for a in (y, k, fix)]
     ta = [torch.tensor(a) for a in (y, k, fix)]
     # fun: relative to the sum of the magnitudes of its terms
@@ -237,7 +238,7 @@ def test_jac_slot_values_match_jax(jchem, mechdir):
     mj = jchem["mech"].load_gas_mechanism(mechdir)
     mt = tmech.load_gas_mechanism(mechdir)
     kj = jchem["gas_kernel"].GasKernel(mj, dtype=jnp.float64)
-    kt = tgk.GasKernel(mt, dtype=torch.float64)
+    kt = tgk.GasKernel(mt, dtype=torch.float64, device="cpu")
     assert kj.solver == kt.solver == "sparse"
     assert kt.slu.entries == kj.slu.entries
     y, k, fix = random_state(mt, 4, 3)
@@ -262,7 +263,8 @@ def integrate_both(jchem, mj, mt, solver, B=4, seed=1, dt=10.0):
     kj = jchem["gas_kernel"].GasKernel(mj, dtype=jnp.float64, solver=solver)
     kkj = kj.rate_constants(jax_env(env), fix=jnp.asarray(fix))
     yj, ij = kj.integrate(jnp.asarray(y0), kkj, jnp.asarray(fix), dt)
-    kt = tgk.GasKernel(mt, dtype=torch.float64, solver=solver)
+    kt = tgk.GasKernel(mt, dtype=torch.float64, solver=solver,
+                      device="cpu")
     kkt = kt.rate_constants(torch_env(env), fix=torch.tensor(fix))
     yt, it = kt.integrate(torch.tensor(y0), kkt, torch.tensor(fix), dt)
     assert set(it) == set(ij)

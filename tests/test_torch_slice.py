@@ -82,7 +82,7 @@ def test_float32_minute_stays_float32(tmp_path):
     write_synthetic_radiation_tables(tmp_path)
     cfg = pt.MistraConfig(grid=pt.GridParams(**TINY_GRID), dtype="float32",
                           inpdir=str(tmp_path), **BTZ96)
-    model = pt.Model(cfg)
+    model = pt.Model(cfg, device="cpu")
     assert model.radiation_enabled
     state = model.minute_step(model.init_state(3))
     for sub in ("met", "turb", "surf", "micro", "rad", "tim"):
@@ -142,7 +142,7 @@ def test_init_state_raises_without_radiation_tables(tmp_path, missing):
     (tmp_path / missing).unlink()
     cfg = pt.MistraConfig(grid=pt.GridParams(**TINY_GRID),
                           inpdir=str(tmp_path), **BTZ96)
-    model = pt.Model(cfg)
+    model = pt.Model(cfg, device="cpu")
     with pytest.raises(FileNotFoundError, match=missing):
         model.init_state(1)
     assert model.radiation_enabled

@@ -28,11 +28,15 @@ Phases (any failure exits non-zero):
      2048 cells ([8192, 80, 80] aqueous blocks, [2048, 101, 101] Schur
      complements): equilibrated stage matrices of the tot-shaped
      mechanism, a diagonally dominant batch and a batch that needs
-     pivoting; times both and torch.linalg.inv beside them, and sets
-     each time beside its bound;
+     pivoting; prints each shape's launch plan (variant, tile, grid, and
+     the blocks per SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+     checks it against the Python plan and says whether the kernel is
+     equal to the plain version bit for bit; times both and
+     torch.linalg.inv beside them, and sets each time beside its bound;
   6. chemistry path: GasKernel.integrate (Ros3, block-arrow solver) for
      2048 cells in float64, one warm 10-s substep and timed substeps, with
-     the inverse kernel's launch counter read around it;
+     the inverse kernel's launch counter read around them, then one more
+     substep under torch.profiler with its device time by kernel;
   7. the chemistry path on the card against the CPU: 16 cells, float64,
      one substep.
 
@@ -349,17 +353,17 @@ def device_time_by_kernel(prof, top: int = 10) -> list:
     return sorted(rows, key=lambda r: -r[2])[:top]
 
 
-def profile_minute(model, state):
-    """One minute step under torch.profiler: (state, wall s, device busy
-    s, device events, top kernels by device time); busy is the union of
-    the kernels' intervals."""
+def profile_call(fn):
+    """fn() under torch.profiler: (its result, wall s, device busy s,
+    device events, top kernels by device time); busy is the union of the
+    kernels' intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state = model.minute_step(state)
+        result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -369,7 +373,17 @@ def profile_minute(model, state):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return state, wall, busy * 1e-6, len(spans), device_time_by_kernel(prof)
+    return result, wall, busy * 1e-6, len(spans), device_time_by_kernel(prof)
+
+
+def log_profile(what, wall, busy, events, top):
+    log(f"{what} under torch.profiler: wall {1e3 * wall:.1f} ms, device "
+        f"busy {1e3 * busy:.1f} ms ({100.0 * busy / wall:.1f} %), {events} "
+        f"device events; device time by kernel (key_averages):")
+    for name, calls, kms in top:
+        log(f"  {kms:9.3f} ms {100.0 * kms / (1e3 * busy):5.1f} % of busy "
+            f"{100.0 * kms / (1e3 * wall):5.1f} % of wall  {calls:6d} x "
+            f"{name[:90]}")
 
 
 def main_path_rows(model, state, growth, bott_cuda):
@@ -496,14 +510,9 @@ def phase_main(inpdir, bott_cuda):
         f"torch.profiler), {ops} aten ops")
     check(ops > 0, "no operators in the radiation call")
 
-    state, wall, busy, events, top = profile_minute(model, state)
-    log(f"one minute under torch.profiler: wall {1e3 * wall:.1f} ms, device "
-        f"busy {1e3 * busy:.1f} ms ({100.0 * busy / wall:.1f} %), {events} "
-        f"device events; device time by kernel (key_averages):")
-    for name, calls, kms in top:
-        log(f"  {kms:9.3f} ms {100.0 * kms / (1e3 * busy):5.1f} % of busy "
-            f"{100.0 * kms / (1e3 * wall):5.1f} % of wall  {calls:6d} x "
-            f"{name[:90]}")
+    state, wall, busy, events, top = profile_call(
+        lambda: model.minute_step(state))
+    log_profile("one minute", wall, busy, events, top)
     from mistra_tpu_torch.physics import growth
     rows = main_path_rows(model, state, growth, bott_cuda)
     return counts, {"radiation_ms": rad_ms, "radiation_device_events":
@@ -665,7 +674,9 @@ def normwise_residual(a, x):
 
 def compare_inverse(lu, lu_cuda, a, label):
     """The inverse kernel against the plain version (and torch.linalg.inv
-    as a reference figure) on one batch; checks and times them."""
+    as a reference figure) on one batch; checks and times them.  Both do
+    the same operations in the same order, so bit_equal is expected; a
+    differing rounding would still pass within LU_TOL."""
     n, m, _ = a.shape
     dtype = a.dtype
     # reads A, writes X; Gauss-Jordan does ~m^3 multiply-adds per matrix
@@ -675,19 +686,21 @@ def compare_inverse(lu, lu_cuda, a, label):
     xl = torch.linalg.inv(a)
     torch.cuda.synchronize()
     rel = ((xk - xp).abs().amax() / xp.abs().amax()).item()
+    bit_equal = bool(torch.equal(xk, xp))
     res_k, res_l = normwise_residual(a, xk), normwise_residual(a, xl)
     res_tol = LU_RES_FACTOR * m * torch.finfo(dtype).eps
     out = dict(
         max_abs_err=(xk - xp).abs().max().item(), rel_err=rel,
-        tol=LU_TOL[dtype], residual=res_k, linalg_residual=res_l,
-        residual_tol=res_tol,
+        bit_equal=bit_equal, tol=LU_TOL[dtype], residual=res_k,
+        linalg_residual=res_l, residual_tol=res_tol,
         shape=f"{n}x{m}x{m} {str(dtype).replace('torch.', '')} {label}",
         ms=cuda_ms(lambda: lu_cuda.batched_inv(a), 10),
         plain_ms=cuda_ms(lambda: lu.batched_inv_plain(a), 2, warmup=1),
         library_ms=cuda_ms(lambda: torch.linalg.inv(a), 5), **bnd)
     out["roofline_share"] = out["bound_ms"] / out["ms"]
     log(f"batched_inv {out['shape']}: err {out['max_abs_err']:.3e} (rel "
-        f"{rel:.3e}), residual {res_k:.3e} (linalg.inv {res_l:.3e}); "
+        f"{rel:.3e}, bit-equal {bit_equal}), residual {res_k:.3e} "
+        f"(linalg.inv {res_l:.3e}); "
         f"{out['ms']:.3f} ms vs plain {out['plain_ms']:.3f} ms, "
         f"linalg.inv {out['library_ms']:.3f} ms, bound "
         f"{out['bound_ms']:.3f} ms ({out['bound_by']}, "
@@ -702,6 +715,12 @@ def phase_lu(mech, reference):
     """Kernel against plain at the chemistry solve's shapes, both dtypes,
     three kinds of input; returns the results per (dtype, m, kind)."""
     from mistra_tpu_torch.chemistry import lu, lu_cuda
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"card: {torch.cuda.get_device_properties(0).multi_processor_count} "
+        f"SMs, max SM clock {clock} MHz (one block per matrix)")
     out = {}
     for dtype in (torch.float64, torch.float32):
         kern, k, fix, y = chem_inputs(mech, reference, CHEM_CELLS, dtype,
@@ -717,14 +736,24 @@ def phase_lu(mech, reference):
         del fact, kern
         for a_stage in stage:
             n, m, _ = a_stage.shape
+            plan = lu_cuda.launch_plan(m, dtype)
+            got = lu_cuda.kernel_plan(m, dtype)
+            check(got["plan"] == plan, f"C plan {got['plan']} != {plan}")
+            log(f"batched_inv plan m={m} {str(dtype).replace('torch.', '')}: "
+                f"{plan.variant}, tile {plan.ry}x{plan.rx} per thread on "
+                f"{plan.ty} lanes x {plan.tx} warps, {plan.threads} threads, "
+                f"{plan.smem_bytes} B shared memory; {got['blocks_per_sm']} "
+                f"blocks per SM")
             a_dom = rng.random((n, m, m)) + 4.0 * np.eye(m)
             a_piv = rng.standard_normal((n, m, m))
             a_piv[:, np.arange(m // 2), np.arange(m // 2)] = 0.0
             for kind, a in (("stage", a_stage), ("dominant", a_dom),
                             ("pivoting", a_piv)):
                 a = torch.as_tensor(a, dtype=dtype, device=DEVICE)
-                out[(dtype, m, kind)] = compare_inverse(lu, lu_cuda, a,
-                                                        kind)
+                r = compare_inverse(lu, lu_cuda, a, kind)
+                r["plan"] = dataclasses.asdict(plan)
+                r["blocks_per_sm"] = got["blocks_per_sm"]
+                out[(dtype, m, kind)] = r
     return out
 
 
@@ -732,7 +761,8 @@ def phase_chem(mech, reference):
     """The stiff chemistry solve on the card: GasKernel.integrate for
     CHEM_CELLS cells in float64, one warm substep then CHEM_TIMED timed
     ones, each from the last (clamped at 0, as benchmarks/bench_chem.py);
-    returns the inverse kernel's launches and the Ros3 loop iterations."""
+    then one more under torch.profiler; returns the inverse kernel's
+    launches, the Ros3 loop iterations and the path's figures."""
     from mistra_tpu_torch.chemistry import lu_cuda
     kern, k, fix, y = chem_inputs(mech, reference, CHEM_CELLS,
                                   torch.float64, DEVICE)
@@ -753,6 +783,10 @@ def phase_chem(mech, reference):
               "failed")
         check(bool(info["done"].all()), "cells not done")
         check(bool(torch.isfinite(y).all()), "non-finite concentrations")
+    (y, info), wall, busy, events, top = profile_call(
+        lambda: kern.integrate(y, k, fix, CHEM_DT))
+    iterations += int(info["nsteps"].max())
+    check(int(info["n_failed"]) == 0, "cells failed (profiled substep)")
     launches = lu_cuda.batched_inv.launches
     check(tuple(y.shape) == (CHEM_CELLS, mech.nvar), f"y shape {y.shape}")
     # two inverses per Ros3 step attempt, and nothing else calls the kernel
@@ -767,7 +801,19 @@ def phase_chem(mech, reference):
         f"{steps[0].mean():.1f}/{steps[0].max()}, timed "
         f"{np.mean(steps[1:]):.1f}/{np.max(steps[1:])}; n_failed 0; "
         f"batched_inv launches {launches} = 2 x {iterations} iterations")
-    return launches, iterations
+    log_profile(f"one chemistry substep ({int(info['nsteps'].max())} Ros3 "
+                f"iterations)", wall, busy, events, top)
+    inv_ms = sum(t for n, _, t in top if "gj_inverse" in n)
+    log(f"chemistry substep: gj_inverse kernels {inv_ms:.3f} ms, "
+        f"{100.0 * inv_ms / (1e3 * busy):.1f} % of device busy")
+    return launches, iterations, {
+        "cell_substeps_per_s": rate,
+        "ros3_steps_mean": float(np.mean(steps[1:])),
+        "ros3_steps_max": int(np.max(steps[1:])),
+        "profiled_substep_wall_ms": 1e3 * wall,
+        "profiled_substep_busy_ms": 1e3 * busy,
+        "profiled_substep_top_kernels": [
+            {"kernel": n, "launches": c, "ms": t} for n, c, t in top]}
 
 
 def phase_chem_device_vs_cpu(mech, reference):
@@ -789,6 +835,57 @@ def phase_chem_device_vs_cpu(mech, reference):
         f"{CHEM_DEVICE_TOL}); nsteps differ in {ndiff} of "
         f"{CHEM_CMP_CELLS} cells (cpu mean {out['cpu'][1].mean():.1f})")
     check(err <= CHEM_DEVICE_TOL, f"chemistry card vs CPU {err:.3e}")
+
+
+def ptxas_report(text: str) -> dict:
+    """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
+    from nvcc -Xptxas -v output."""
+    import re
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def check_ptxas(text: str) -> None:
+    """Logs each kernel's registers and spills; fails if a variant of the
+    inverse on the chemistry path (float64, m = 80 and 101) spills."""
+    if not text:
+        log("ptxas: library loaded from the build cache, no log")
+        return
+    import re
+    from mistra_tpu_torch.chemistry import lu_cuda
+    rep = ptxas_report(text)
+    for name, r in sorted(rep.items()):
+        hit = re.search(r"\d+((?:gj_inverse|bott)\w*)", name)
+        short = hit.group(1) if hit else name
+        log(f"ptxas: {short[:70]}: "
+            f"{r.get('registers')} registers, {r.get('stack')} B stack, "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} B spill "
+            f"stores / loads")
+    for m in (80, 101):
+        p = lu_cuda.launch_plan(m, torch.float64)
+        key = f"gj_inverse_kernelIdLi{p.tx}ELi{p.ry}ELi{p.rx}E"
+        hits = [r for n, r in rep.items() if key in n]
+        check(len(hits) == 1, f"ptxas: no single entry for {key}")
+        check(hits[0].get("spill_stores") == 0 == hits[0].get("spill_loads"),
+              f"ptxas: {key} spills: {hits[0]}")
 
 
 def main() -> int:
@@ -815,9 +912,7 @@ def main() -> int:
     build.load_library()
     log(f"kernel build + load {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds if build.build_seconds else 0.0:.2f} s)")
-    for line in build.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas: " + line.strip())
+    check_ptxas(build.ptxas_log)
 
     kernels = phase_kernels(growth, bott_cuda)
     with tempfile.TemporaryDirectory(prefix="mistra_inp_") as tmp:
@@ -828,7 +923,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="mistra_mech_") as tmp:
         mech, reference = chem_mechanism(tmp)
     lu_results = phase_lu(mech, reference)
-    counts["batched_inv"], ros3_iterations = phase_chem(mech, reference)
+    counts["batched_inv"], ros3_iterations, main["chemistry"] = phase_chem(
+        mech, reference)
     phase_chem_device_vs_cpu(mech, reference)
 
     rows = []
@@ -859,10 +955,11 @@ def main() -> int:
         "bound_by": "+".join(sorted({r["bound_by"] for r in main_calls})),
         "roofline_share": inv["bound_ms"] / inv["ms"],
         "shape": " + ".join(r["shape"] for r in main_calls),
-        "all": [{k: r[k] for k in ("shape", "rel_err", "residual",
-                                   "linalg_residual", "ms", "plain_ms",
-                                   "library_ms", "bound_ms", "bound_by",
-                                   "roofline_share")}
+        "all": [{k: r[k] for k in ("shape", "rel_err", "bit_equal",
+                                   "residual", "linalg_residual", "ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "roofline_share", "plan",
+                                   "blocks_per_sm")}
                 for r in lu_results.values()]})
     log(json.dumps({"main_path": main}))
     log(json.dumps({"kernels": rows}))

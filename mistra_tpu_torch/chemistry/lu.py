@@ -12,7 +12,9 @@ Gauss-Jordan with partial (row) pivoting.
   ``_inv_gj_pivot``; the CPU path and the reference the kernel is held
   against.
 * ``lu_cuda.batched_inv``: the hand-written CUDA kernel
-  (``csrc/lu.cu``), which replaces both Pallas kernels.
+  (``csrc/lu.cu``), which replaces both Pallas kernels: one block per
+  matrix, the matrix in registers up to m = 128 and in shared memory
+  above (``lu_cuda.launch_plan``).
 * ``batched_inv``: the router, as ``physics.growth`` routes the Bott
   kernels: a CUDA tensor goes to the kernel, a CPU tensor to the plain
   version, and any other device raises.

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "bott_dwsum_f64": [_P, _P, _P, _P, _I, _I, _I, _D, _P],
     "batched_inv_f32": [_P, _P, _I, _I, _P],
     "batched_inv_f64": [_P, _P, _I, _I, _P],
+    "batched_inv_plan_f32": [_I, _P],
+    "batched_inv_plan_f64": [_I, _P],
 }
 
 _lib = None

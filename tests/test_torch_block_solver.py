@@ -4,7 +4,8 @@ On the CPU, in float64 unless stated: ``assemble``/``prepare``/``solve``
 and the whole Ros3 integration with the block solver against the JAX
 package on a small synthetic stand-in mechanism; ``batched_inv_plain``
 against the JAX package's inverses; the router.  On a CUDA device: the
-hand-written kernel (csrc/lu.cu) against the plain version.
+hand-written kernel (csrc/lu.cu) against the plain version, bit for bit,
+and its launch plan (which the CPU tests check in Python).
 
 The CUDA tests run on a GPU host without JAX and without the suite's
 conftest (which configures JAX):
@@ -202,9 +203,66 @@ def test_router_takes_plain_on_cpu_and_refuses_other_devices():
 
 
 def test_kernel_shared_memory_bound():
-    # the largest matrices one block holds in 227 KB
-    assert lu_cuda.smem_bytes(168, 8) <= 232448 < lu_cuda.smem_bytes(169, 8)
-    assert lu_cuda.smem_bytes(238, 4) <= 232448 < lu_cuda.smem_bytes(239, 4)
+    # the largest matrices the shared-memory variant holds in 227 KB; the
+    # register variant stays within the default 48 KB up to m = 128
+    f64, f32 = torch.float64, torch.float32
+    assert lu_cuda.launch_plan(168, f64).smem_bytes <= 232448
+    assert lu_cuda.launch_plan(238, f32).smem_bytes <= 232448
+    for m, dtype in ((169, f64), (239, f32)):
+        with pytest.raises(ValueError):
+            lu_cuda.launch_plan(m, dtype)
+    assert max(lu_cuda.launch_plan(m, f64).smem_bytes
+               for m in range(1, 129)) <= 48 * 1024
+
+
+# m -> (variant, thread grid ty lanes x tx warps, tile ry x rx): the
+# register tiles' edges, the tot mechanism's blocks, the variant switch at
+# 128 and the largest shared-memory sizes
+PLANS = {1: ("regs", 32, 8, 1, 4), 15: ("regs", 32, 8, 1, 4),
+         16: ("regs", 32, 8, 1, 4), 17: ("regs", 32, 8, 1, 4),
+         32: ("regs", 32, 8, 1, 4), 33: ("regs", 32, 8, 2, 8),
+         64: ("regs", 32, 8, 2, 8), 65: ("regs", 32, 8, 3, 10),
+         80: ("regs", 32, 8, 3, 10), 81: ("regs", 32, 16, 3, 6),
+         96: ("regs", 32, 16, 3, 6), 97: ("regs", 32, 16, 4, 7),
+         101: ("regs", 32, 16, 4, 7), 112: ("regs", 32, 16, 4, 7),
+         113: ("regs", 32, 16, 4, 8), 128: ("regs", 32, 16, 4, 8),
+         129: ("smem", 0, 0, 0, 0), 168: ("smem", 0, 0, 0, 0),
+         238: ("smem", 0, 0, 0, 0)}
+
+
+@pytest.mark.parametrize("m", sorted(PLANS))
+def test_launch_plan(m):
+    for dtype in (torch.float64, torch.float32):
+        if dtype == torch.float64 and m > 168:
+            with pytest.raises(ValueError):
+                lu_cuda.launch_plan(m, dtype)
+            continue
+        p = lu_cuda.launch_plan(m, dtype)
+        assert (p.variant, p.ty, p.tx, p.ry, p.rx) == PLANS[m]
+        if p.variant == "regs":
+            assert p.threads == p.ty * p.tx
+            # the tile covers m, and the one before it in TILES does not
+            assert p.ty * p.ry >= m and p.tx * p.rx >= m
+            q = [t[1:] for t in lu_cuda.TILES].index((p.tx, p.ry, p.rx))
+            assert q == 0 or lu_cuda.TILES[q - 1][0] < m
+            # the strip of 32 rows (or, if larger, the step buffers), then
+            # two pivot rows, perm and iperm
+            values = max(32 * (m | 1), 2 * 32 * p.ry + p.tx * p.rx + 4)
+            assert p.smem_bytes == values * dtype.itemsize + 4 * (2 + 2 * m)
+        else:
+            assert p.threads == 256
+
+
+def test_launch_plan_refusals():
+    with pytest.raises(ValueError):
+        lu_cuda.launch_plan(0, torch.float64)
+    with pytest.raises(TypeError):
+        lu_cuda.launch_plan(8, torch.float16)
+    # every register tile is used, and none beyond m = 128
+    tiles = {(p.tx, p.ry, p.rx) for p in (
+        lu_cuda.launch_plan(m, torch.float64) for m in range(1, 129))}
+    assert tiles == {t[1:] for t in lu_cuda.TILES}
+    assert lu_cuda.launch_plan(129, torch.float32).variant == "smem"
 
 
 # --------------------------------------------------------------------------
@@ -220,10 +278,15 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-# the tot mechanism's blocks, a ragged tiny size, more entries than
-# threads per row, the largest float32 size
-@pytest.mark.parametrize("n,m", [(300, 80), (70, 101), (9, 3), (5, 300),
-                                 (3, 238)])
+# the tot mechanism's blocks, a ragged tiny size, the register tiles'
+# edges (one and two 32-row slabs, the tiles' last m, the variant switch
+# at 128), the shared-memory variant, the largest float32 size
+@pytest.mark.parametrize("n,m", [(300, 80), (70, 101), (9, 3), (5, 1),
+                                 (6, 15), (6, 16), (6, 17), (6, 31),
+                                 (6, 32), (6, 33), (6, 64), (6, 65),
+                                 (6, 81), (6, 96), (6, 97), (5, 112),
+                                 (5, 113), (5, 127), (5, 128), (5, 129),
+                                 (5, 300), (3, 238)])
 @pytest.mark.parametrize("kind", ["dominant", "pivoting"])
 def test_kernel_matches_plain_on_card(cuda, dtype, n, m, kind):
     if dtype == torch.float64 and m > 168:
@@ -237,6 +300,45 @@ def test_kernel_matches_plain_on_card(cuda, dtype, n, m, kind):
     torch.cuda.synchronize()
     assert (xk - xp).abs().max().item() <= KERNEL_TOL[dtype] * \
         xp.abs().max().item()
+    # the same operations in the same order: equal to the last bit
+    assert torch.equal(xk, xp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [3, 33, 80, 101, 129])
+def test_kernel_pivot_rule_on_card(cuda, dtype, m):
+    """As test_plain_inverse_pivot_rule, embedded in an m x m identity
+    (both variants): a tie |-2| = |2| takes the first row; a NaN in the
+    pivot column is taken above all; a singular matrix gives non-finite
+    output rather than an error."""
+    tie = [[0.0, 1.0, 0.0], [-2.0, 0.0, 1.0], [2.0, 1.0, 1.0]]
+    nan = [[1.0, 2.0, 3.0], [float("nan"), 4.0, 6.0], [0.0, 0.0, 1.0]]
+    sing = [[1.0, 2.0, 3.0], [2.0, 4.0, 6.0], [0.0, 0.0, 1.0]]
+    a = torch.eye(m, dtype=dtype).repeat(3, 1, 1)
+    for q, blk in enumerate((tie, nan, sing)):
+        a[q, :3, :3] = torch.tensor(blk, dtype=dtype)
+    a = a.to(cuda)
+    xk, xp = lu_cuda.batched_inv(a), lu.batched_inv_plain(a)
+    torch.cuda.synchronize()
+    assert torch.equal(xk[0], xp[0])
+    np.testing.assert_allclose(xk[0, :3, :3].double().cpu().numpy(),
+                               np.linalg.inv(np.array(tie)), rtol=1e-6)
+    assert torch.equal(torch.isnan(xk), torch.isnan(xp))
+    assert torch.equal(torch.nan_to_num(xk), torch.nan_to_num(xp))
+    assert bool(torch.isnan(xk[1]).any())
+    assert not bool(torch.isfinite(xk[2]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", sorted(PLANS))
+def test_kernel_plan_matches_python_on_card(cuda, m):
+    for dtype in (torch.float64, torch.float32):
+        if dtype == torch.float64 and m > 168:
+            continue
+        got = lu_cuda.kernel_plan(m, dtype)
+        assert got["plan"] == lu_cuda.launch_plan(m, dtype)
+        assert got["blocks_per_sm"] >= (2 if m <= 80 else 1)
 
 
 @pytest.mark.gpu

@@ -37,17 +37,36 @@ Phases (any failure exits non-zero):
      2048 cells in float64, one warm 10-s substep and timed substeps, with
      the inverse kernel's launch counter read around them, then one more
      substep under torch.profiler with its device time by kernel;
+     Phase 5 also holds the inverse at the chem=T minute's shapes and dtypes
+     (phase 8): the gas mechanism's 2 bins of m = 4 and its gas core of
+     m = 95, one cell per interior layer of 64 columns, float32 and
+     float64;
   7. the chemistry path on the card against the CPU: 16 cells, float64,
-     one substep.
+     one substep;
+  8. chem=T minute: the BTZ96 settings with chem=True, nkc_l=0 (the
+     entry's chemistry configuration, __graft_entry__.py:25-33) at the
+     production grid in float32 for 64 columns, half at 00:00 and half at
+     12:00, two minutes (the J-rates held on the odd minute, recomputed on
+     the even one), with every kernel's launch counter read around them;
+     the photolysis call alone; one more minute under torch.profiler;
+  9. the chem=T port on the card against the port on the CPU: two columns
+     (00:00, 12:00), float64, two minutes, the chemistry fields included;
+     then photolysis alone, card against CPU, float64 and float32.
 
-The input tables of phases 3-4b are the reference's where $INPDIR holds
-them (clarke.dat; pifm2_171115.dat with the six Mie files), else synthetic
-stand-ins (write_synthetic_clarke_table, write_synthetic_radiation_tables;
-not the reference's values).  The mechanism of phases 5-7 is the
-reference's tot mechanism when $MECHDIR holds master_gas.eqn and
-master_aqueous.eqn, else a synthetic stand-in of its block shape
+The input tables of phases 3-4b and 8-9 are the reference's where $INPDIR
+holds them (clarke.dat; pifm2_171115.dat with the six Mie files;
+photolys/flux.dat, sig0900.dat, cheb_coeff.dat, qyield.dat), else
+synthetic stand-ins (write_synthetic_clarke_table,
+write_synthetic_radiation_tables, write_synthetic_photolysis_tables; not
+the reference's values).  The mechanism of phases 5-7 is the reference's
+tot mechanism when $MECHDIR holds master_gas.eqn and master_aqueous.eqn,
+else a synthetic stand-in of its block shape
 (mistra_tpu_torch.chemistry.mech.write_synthetic_multiphase_mechanism; not
-the reference's chemistry).
+the reference's chemistry).  The gas mechanism of phases 5 and 8-9 is the
+reference's when $MECHDIR holds gas.eqn, master_gas.eqn and
+gas_species.csv, else a synthetic stand-in of its shape
+(write_synthetic_gas_mechanism: 95 gas species and 7 binned, 331
+reactions; not the reference's chemistry).
 
 The last two lines are a JSON object of per-kernel results and the
 device line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -146,6 +165,31 @@ LU_RES_FACTOR = 16
 # by rounding agree far closer while they take the same steps, and stay
 # within ~rtol of each other where an accept/reject decision flips
 CHEM_DEVICE_TOL = 1e-3
+
+# chem=T minute (phases 8-9): the entry's chemistry configuration
+CHEM_T = dict(BTZ96, chem=True, nkc_l=0)
+CHEM_T_COLUMNS = 64
+CHEM_T_MINUTES = 2
+PHOT_REPS = 3
+# card against CPU, chem=T, two columns, float64, two minutes.  t, xm1
+# and ff as DEVICE_TOL (the same physics).  sgas, relative to each
+# species' largest value: while both runs take the same Ros3 steps they
+# agree to rounding; where an accept/reject decision flips, the two
+# trajectories each hold their local error under rtol = 1e-3, so the
+# runs can part by up to ~rtol per substep that flips, 12 substeps in two
+# minutes: 1e-2.  photol_j, relative to each slot's largest value: the
+# J-rates of minute 2 are computed from states that differ by ~1e-6 in t
+# and ~1e-5 in ff (the aerosol optics), a smooth map: 1e-4
+CHEM_T_DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "sgas": 1e-2,
+                     "photol_j": 1e-4}
+# photolysis alone, card against CPU on the same inputs, relative to each
+# slot's largest value.  The calculation runs in float64 for every model
+# dtype; libm and summation order differ between the devices by ulps,
+# which the four-stream system (condition up to ~1e11 under a fog; the
+# block solve is refined to the dense LU's residual) lifts to <= ~1e-10.
+# float32: the same float64 calculation on the same float32 inputs, its
+# result rounded to float32 (2^-24 ~ 6e-8) on each device: 1e-6
+PHOT_TOL = {torch.float64: 1e-9, torch.float32: 1e-6}
 
 
 def log(msg: str) -> None:
@@ -293,20 +337,27 @@ def phase_kernels(growth, bott_cuda):
 
 
 def input_dir(tmp: str) -> str:
-    """tmp, holding the input tables of the BTZ96 step: links to INPDIR's
-    reference tables where it holds them, else the synthetic stand-ins
-    (clarke.dat; pifm2_171115.dat with the six Mie files)."""
+    """tmp, holding the input tables of the BTZ96 and chem=T steps: links
+    to INPDIR's reference tables where it holds them, else the synthetic
+    stand-ins (clarke.dat; pifm2_171115.dat with the six Mie files; the
+    four photolys/ files)."""
+    from mistra_tpu_torch.photolysis.tables import (
+        PHOTOLYSIS_FILES, write_synthetic_photolysis_tables)
     from mistra_tpu_torch.physics.surface import write_synthetic_clarke_table
     from mistra_tpu_torch.radiation.tables import (
         MIE_FILES, PIFM2_FILE, write_synthetic_radiation_tables)
     inpdir = os.environ.get("INPDIR")
+    phot = tuple(os.path.join("photolys", f) for f in PHOTOLYSIS_FILES)
     for label, files, write in (
             ("clarke.dat", ("clarke.dat",), write_synthetic_clarke_table),
             ("radiation tables", (PIFM2_FILE,) + MIE_FILES,
-             write_synthetic_radiation_tables)):
+             write_synthetic_radiation_tables),
+            ("photolysis tables", phot, write_synthetic_photolysis_tables)):
         if inpdir and all(os.path.exists(os.path.join(inpdir, f))
                           for f in files):
             for f in files:
+                os.makedirs(os.path.dirname(os.path.join(tmp, f)),
+                            exist_ok=True)
                 os.symlink(os.path.abspath(os.path.join(inpdir, f)),
                            os.path.join(tmp, f))
             log(f"{label}: reference tables from INPDIR ({inpdir})")
@@ -315,6 +366,24 @@ def input_dir(tmp: str) -> str:
             log(f"{label}: synthetic stand-in (INPDIR lacks "
                 f"{', '.join(files)})")
     return tmp
+
+
+def gas_mechanism_dir(tmp: str):
+    """(directory, is_reference) of the chem=T minute's gas mechanism:
+    $MECHDIR when it holds the reference's gas.eqn, master_gas.eqn and
+    gas_species.csv, else tmp with the synthetic stand-in written to it."""
+    from mistra_tpu_torch.chemistry.mech import write_synthetic_gas_mechanism
+    mechdir = os.environ.get("MECHDIR")
+    files = ("gas.eqn", "master_gas.eqn", "gas_species.csv")
+    if mechdir and all(os.path.exists(os.path.join(mechdir, f))
+                       for f in files):
+        log(f"gas mechanism: reference gas mechanism from MECHDIR "
+            f"({mechdir})")
+        return mechdir, True
+    write_synthetic_gas_mechanism(tmp)
+    log("gas mechanism: synthetic stand-in of the reference's shape "
+        f"(MECHDIR lacks {', '.join(files)})")
+    return tmp, False
 
 
 def model_config(inpdir, dtype):
@@ -463,11 +532,7 @@ def phase_main(inpdir, bott_cuda):
               "bott_advect": bott_cuda.bott_advect.launches}
 
     gp = cfg.grid
-    for sub in ("met", "turb", "surf", "micro"):
-        for name, x in vars(getattr(state, sub)).items():
-            if x.is_floating_point():
-                check(bool(torch.isfinite(x).all()),
-                      f"non-finite {sub}.{name}")
+    check_state(state, "main path")
     shape = tuple(state.micro.ff.shape)
     check(shape == (MAIN_COLUMNS, gp.nkt, gp.nka, gp.n), f"ff shape {shape}")
     advanced = (state.tim.time - t_start).cpu().numpy()
@@ -477,9 +542,6 @@ def phase_main(inpdir, bott_cuda):
     check(counts["bott_dwsum"] >= 6 * MAIN_MINUTES, f"launches {counts}")
     check(counts["bott_advect"] == 6 * MAIN_MINUTES, f"launches {counts}")
 
-    for name in ("dtrad", "totrad", "sk", "sl"):
-        x = getattr(state.rad, name)
-        check(bool(torch.isfinite(x).all()), f"non-finite rad.{name}")
     check(bool((state.rad.dtrad != 0).any()), "radiation left dtrad zero")
 
     steady = times[1:] if len(times) > 1 else times
@@ -527,17 +589,22 @@ def phase_main(inpdir, bott_cuda):
 
 
 def midnight_and_noon(model, B=2):
-    """model's initial state of B columns: column 0 at 00:00 (the BTZ96
-    start) and column 1 at 12:00 local solar time, each with its own
-    solar zenith angle."""
+    """model's initial state of B columns: the first half at 00:00 (the
+    BTZ96 start) and the second half at 12:00 local solar time, each with
+    its own solar zenith angle and, with chemistry on, its own initial
+    J-rates."""
     from mistra_tpu_torch.model import solar_zenith
     state = model.init_state(B)
     lst = state.tim.lst.clone()
-    lst[1] = 12
+    lst[B // 2:] = 12
     u0 = solar_zenith(lst, state.tim.lmin, model.astro.alat,
                       model.astro.declin, model.dtype)
-    return state.replace(tim=state.tim.replace(lst=lst),
-                         rad=state.rad.replace(u0=u0))
+    state = state.replace(tim=state.tim.replace(lst=lst),
+                          rad=state.rad.replace(u0=u0))
+    if model._photolysis is not None:
+        state = model.photolysis_step(
+            state, torch.ones_like(u0, dtype=torch.bool))
+    return state
 
 
 def phase_device_vs_cpu(inpdir):
@@ -735,25 +802,40 @@ def phase_lu(mech, reference):
         stage = (fact.abb.reshape(-1, blk.ma, blk.ma), fact.s)
         del fact, kern
         for a_stage in stage:
-            n, m, _ = a_stage.shape
-            plan = lu_cuda.launch_plan(m, dtype)
-            got = lu_cuda.kernel_plan(m, dtype)
-            check(got["plan"] == plan, f"C plan {got['plan']} != {plan}")
-            log(f"batched_inv plan m={m} {str(dtype).replace('torch.', '')}: "
-                f"{plan.variant}, tile {plan.ry}x{plan.rx} per thread on "
-                f"{plan.ty} lanes x {plan.tx} warps, {plan.threads} threads, "
-                f"{plan.smem_bytes} B shared memory; {got['blocks_per_sm']} "
-                f"blocks per SM")
-            a_dom = rng.random((n, m, m)) + 4.0 * np.eye(m)
-            a_piv = rng.standard_normal((n, m, m))
-            a_piv[:, np.arange(m // 2), np.arange(m // 2)] = 0.0
-            for kind, a in (("stage", a_stage), ("dominant", a_dom),
-                            ("pivoting", a_piv)):
-                a = torch.as_tensor(a, dtype=dtype, device=DEVICE)
-                r = compare_inverse(lu, lu_cuda, a, kind)
-                r["plan"] = dataclasses.asdict(plan)
-                r["blocks_per_sm"] = got["blocks_per_sm"]
-                out[(dtype, m, kind)] = r
+            out.update(inverse_cases(lu, lu_cuda, a_stage, rng,
+                                     ("stage", "dominant", "pivoting")))
+    return out
+
+
+def inverse_cases(lu, lu_cuda, a_stage, rng, kinds, path=""):
+    """The kernel's launch plan for a_stage's m (checked against the
+    Python plan) and compare_inverse on each of kinds: the stage matrices
+    a_stage [N, m, m], a diagonally dominant batch and a batch that needs
+    pivoting, of the same shape and dtype; results per (dtype, m, kind)."""
+    n, m, _ = a_stage.shape
+    dtype = a_stage.dtype
+    plan = lu_cuda.launch_plan(m, dtype)
+    got = lu_cuda.kernel_plan(m, dtype)
+    check(got["plan"] == plan, f"C plan {got['plan']} != {plan}")
+    log(f"batched_inv plan m={m} {str(dtype).replace('torch.', '')}{path}: "
+        f"{plan.variant}, tile {plan.ry}x{plan.rx} per thread on "
+        f"{plan.ty} lanes x {plan.tx} warps, {plan.threads} threads, "
+        f"{plan.smem_bytes} B shared memory; {got['blocks_per_sm']} "
+        f"blocks per SM")
+    out = {}
+    for kind in kinds:
+        if kind == "stage":
+            a = a_stage
+        elif kind == "dominant":
+            a = rng.random((n, m, m)) + 4.0 * np.eye(m)
+        else:
+            a = rng.standard_normal((n, m, m))
+            a[:, np.arange(m // 2), np.arange(m // 2)] = 0.0
+        a = torch.as_tensor(a, dtype=dtype, device=DEVICE)
+        r = compare_inverse(lu, lu_cuda, a, kind + path)
+        r["plan"] = dataclasses.asdict(plan)
+        r["blocks_per_sm"] = got["blocks_per_sm"]
+        out[(dtype, m, kind)] = r
     return out
 
 
@@ -837,6 +919,252 @@ def phase_chem_device_vs_cpu(mech, reference):
     check(err <= CHEM_DEVICE_TOL, f"chemistry card vs CPU {err:.3e}")
 
 
+def chem_t_config(inpdir, mechdir, dtype):
+    from mistra_tpu_torch import GridParams, MistraConfig
+    return MistraConfig(grid=GRID or GridParams(), dtype=dtype,
+                        inpdir=inpdir, mechdir=mechdir, **CHEM_T)
+
+
+def phase_lu_chem_t(mechdir):
+    """The inverse kernel at the chem=T minute's shapes: the gas
+    mechanism's stage matrices for one cell per interior layer of
+    CHEM_T_COLUMNS columns (2 bins of m = 4, the gas core of m = 95), in
+    float32 (phase 8) and float64 (phase 9), and a batch of each shape
+    that needs pivoting; returns the results per (dtype, m, kind)."""
+    from mistra_tpu_torch import GridParams
+    from mistra_tpu_torch.chemistry import lu, lu_cuda
+    from mistra_tpu_torch.chemistry.mech import load_gas_mechanism
+    mech = load_gas_mechanism(mechdir)
+    cells = CHEM_T_COLUMNS * ((GRID or GridParams()).n - 2)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        kern, k, fix, y = chem_inputs(mech, False, cells, dtype, DEVICE)
+        check(kern.solver == "block", f"gas mechanism solver {kern.solver}")
+        rng = np.random.default_rng(6)
+        ghinv = torch.tensor(10.0 ** rng.uniform(-0.5, 5.0, cells),
+                             dtype=dtype, device=DEVICE)
+        blk = kern.block
+        fact = blk.prepare(blk.assemble(kern.kw_weights(y, k, fix)), ghinv)
+        stage = (fact.abb.reshape(-1, blk.ma, blk.ma), fact.s)
+        del fact, kern
+        for a_stage in stage:
+            out.update(inverse_cases(lu, lu_cuda, a_stage, rng,
+                                     ("stage", "pivoting"), " chem=T"))
+    for (dtype, m, kind), r in out.items():
+        check(r["bit_equal"], f"inverse m={m} {dtype} {kind} is not "
+              "bit-equal to the plain version")
+    return out
+
+
+def check_state(state, what):
+    """Every floating field of state finite, the chemistry's where the
+    state has one."""
+    for sub in ("met", "turb", "surf", "micro", "rad", "chem"):
+        if getattr(state, sub) is None:
+            continue
+        for name, x in vars(getattr(state, sub)).items():
+            if x.is_floating_point():
+                check(bool(torch.isfinite(x).all()),
+                      f"{what}: non-finite {sub}.{name}")
+
+
+def phase_chem_t(inpdir, mechdir, bott_cuda, lu_cuda):
+    """The chem=T minute on the card: CHEM_T_COLUMNS columns, half at
+    00:00 and half at 12:00, float32, CHEM_T_MINUTES minutes with every
+    kernel's launch counter set to 0 just before and read just after;
+    then the photolysis call alone and one more minute under
+    torch.profiler.  Returns the launch counts, the Ros3 loop iterations
+    and the path's figures."""
+    from mistra_tpu_torch import Model
+    cfg = chem_t_config(inpdir, mechdir, "float32")
+    model = Model(cfg, device=DEVICE)
+    B = CHEM_T_COLUMNS
+    t0 = time.perf_counter()
+    state = midnight_and_noon(model, B)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    drv = model._chemistry
+    check(type(drv).__name__ == "ChemistryDriver", f"driver {type(drv)}")
+    check(drv.kernel.solver == "block", f"solver {drv.kernel.solver}")
+    check(model._photolysis is not None, "no photolysis driver")
+    noon = torch.arange(B, device=state.rad.u0.device) >= B // 2
+
+    steps = []
+    integrate = drv.integrate_column
+
+    def counted(st, dt):
+        out = integrate(st, dt)
+        steps.append(drv.last_info["nsteps"])
+        return out
+
+    drv.integrate_column = counted
+    t_start = state.tim.time.clone()
+    pj_start = state.chem.photol_j.clone()
+    times, held = [], None
+    try:
+        bott_cuda.reset_counts()
+        lu_cuda.reset_counts()
+        for minute in range(CHEM_T_MINUTES):
+            t0 = time.perf_counter()
+            state = model.minute_step(state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if minute == 0:
+                held = bool(torch.equal(state.chem.photol_j, pj_start))
+        counts = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
+                  "bott_advect": bott_cuda.bott_advect.launches,
+                  "batched_inv": lu_cuda.batched_inv.launches}
+    finally:
+        drv.integrate_column = integrate
+    nsteps = torch.stack(steps).cpu().numpy()          # [substeps, cells]
+    iterations = int(nsteps.max(axis=1).sum())
+
+    gp = cfg.grid
+    check_state(state, "chem=T minute")
+    check(tuple(state.chem.sgas.shape) == (B, drv.mech.nvar, gp.n),
+          f"sgas shape {tuple(state.chem.sgas.shape)}")
+    advanced = (state.tim.time - t_start).cpu().numpy()
+    check(np.all(advanced == 60.0 * CHEM_T_MINUTES), f"clock {advanced}")
+    check(bool((state.tim.lmin == CHEM_T_MINUTES).all()), "minute counter")
+    pj = state.chem.photol_j
+    check(bool((pj[noon].amax(dim=(1, 2)) > 0.0).all()),
+          "J-rates all zero in a noon column")
+    check(bool((pj[~noon] == 0.0).all()), "J-rates in a midnight column")
+    check(held, "the J-rates changed on the odd minute")
+    check(counts["bott_dwsum"] >= 6 * CHEM_T_MINUTES, f"launches {counts}")
+    check(counts["bott_advect"] == 6 * CHEM_T_MINUTES, f"launches {counts}")
+    check(counts["batched_inv"] == 2 * iterations,
+          f"batched_inv launches {counts['batched_inv']} != 2 x "
+          f"{iterations} Ros3 iterations")
+    nonconv = state.chem.nonconv.cpu().numpy()
+    # as in phase_main, the first minute (the init transient: the Ros3
+    # steps of the first substep) is left out of the steady minute
+    steady = times[1:] if len(times) > 1 else times
+    ms = 1e3 * sum(steady) / len(steady)
+    mean_ms = 1e3 * sum(times) / len(times)
+    log(f"chem=T minute: {B} columns (half at 00:00, half at 12:00) x "
+        f"{CHEM_T_MINUTES} minutes, float32, grid n={gp.n} nka={gp.nka} "
+        f"nkt={gp.nkt}, nvar {drv.mech.nvar}, nrxn {drv.mech.nrxn}, "
+        f"{nsteps.shape[1]} cells; init {init_s:.2f} s; minute step "
+        f"{[round(1e3 * t, 1) for t in times]} ms, steady {ms:.1f} ms = "
+        f"{B / (ms / 1e3):.2f} column-minutes/s (mean of all minutes "
+        f"{mean_ms:.1f} ms = {B / (mean_ms / 1e3):.2f}); Ros3 steps per "
+        f"cell and substep mean {nsteps.mean():.2f} max {nsteps.max()} (first "
+        f"substep {nsteps[0].mean():.2f}/{nsteps[0].max()}), {iterations} "
+        f"loop iterations; nonconv {int(nonconv.sum())} (max per column "
+        f"{int(nonconv.max())}); launches {counts}; J_NO2 at the surface "
+        f"of a noon column {pj[B - 1, 0, 1].item():.3e} 1/s")
+
+    # the photolysis call alone, as post_minute makes it on even minutes
+    phot_s = []
+    for _ in range(PHOT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._photolysis(state)
+        torch.cuda.synchronize()
+        phot_s.append(time.perf_counter() - t0)
+    dev_events, ops = count_launches(lambda: model._photolysis(state))
+    phot_ms = 1e3 * sum(phot_s) / len(phot_s)
+    log(f"photolysis call: {B} columns, 176 intervals x nrlay {gp.nrlay} "
+        f"layers; {[round(1e3 * t, 2) for t in phot_s]} ms, mean "
+        f"{phot_ms:.2f} ms; per call {dev_events} device events, {ops} "
+        f"aten ops")
+
+    state, wall, busy, events, top = profile_call(
+        lambda: model.minute_step(state))
+    log_profile("one chem=T minute", wall, busy, events, top)
+    return counts, iterations, {
+        "columns": B, "minutes": CHEM_T_MINUTES, "minute_ms": times,
+        "steady_minute_ms": ms, "column_minutes_per_s": B / (ms / 1e3),
+        "mean_minute_ms": mean_ms,
+        "mean_column_minutes_per_s": B / (mean_ms / 1e3), "init_s": init_s,
+        "ros3_steps_mean": float(nsteps.mean()),
+        "ros3_steps_max": int(nsteps.max()), "ros3_iterations": iterations,
+        "nonconv": int(nonconv.sum()), "photolysis_ms": phot_ms,
+        "photolysis_device_events": dev_events, "photolysis_aten_ops": ops,
+        "profiled_minute_wall_ms": 1e3 * wall,
+        "profiled_minute_busy_ms": 1e3 * busy,
+        "profiled_minute_events": events,
+        "profiled_minute_top_kernels": [
+            {"kernel": n, "launches": c, "ms": t} for n, c, t in top]}
+
+
+def rows_err(got, ref):
+    """max over rows (axis 1: species, J slots) of max |got - ref| over
+    columns and levels, relative to the row's largest |ref| (a row that
+    is zero in ref counts its absolute difference)."""
+    scale = np.abs(ref).max(axis=(0, 2))
+    diff = np.abs(got - ref).max(axis=(0, 2))
+    return float(np.where(scale > 0.0, diff / np.where(scale > 0.0, scale,
+                                                        1.0), diff).max())
+
+
+def phase_chem_t_device_vs_cpu(inpdir, mechdir):
+    """The chem=T port on the card (kernels) against the port on the CPU
+    (plain versions): a midnight and a noon column, float64, two minutes;
+    then photolysis alone on the same inputs, float64 and float32."""
+    from mistra_tpu_torch import Model
+    cfg = chem_t_config(inpdir, mechdir, "float64")
+    out, models, wall = {}, {}, {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev)
+        state = midnight_and_noon(model)
+        for _ in range(CHEM_T_MINUTES):
+            state = model.minute_step(state)
+        check_state(state, f"chem=T on {dev}")
+        models[dev] = model
+        wall[dev] = time.perf_counter() - t0
+        out[dev] = {k: v.cpu().numpy() for k, v in (
+            ("t", state.met.t), ("xm1", state.met.xm1),
+            ("ff", state.micro.ff), ("sgas", state.chem.sgas),
+            ("photol_j", state.chem.photol_j),
+            ("nonconv", state.chem.nonconv))}
+        if dev == "cpu":
+            last = state
+    ref, got = out["cpu"], out[DEVICE]
+    check(float(ref["photol_j"][1].max()) > 0.0 == float(
+        ref["photol_j"][0].max()), "noon/midnight J-rates")
+    errs = {}
+    for k, tol in CHEM_T_DEVICE_TOL.items():
+        if k in ("sgas", "photol_j"):
+            errs[k] = rows_err(got[k], ref[k])
+        else:
+            errs[k] = float(np.abs(got[k] - ref[k]).max()
+                            / np.abs(ref[k]).max())
+        check(errs[k] <= tol, f"chem=T {k}: card vs CPU {errs[k]:.3e} > "
+              f"{tol}")
+    log(f"chem=T card vs cpu (2 columns at 00:00 and 12:00, float64, "
+        f"{CHEM_T_MINUTES} minutes; card {wall[DEVICE]:.1f} s, cpu "
+        f"{wall['cpu']:.1f} s) max rel err: "
+        + ", ".join(f"{k} {v:.3e} (tol {CHEM_T_DEVICE_TOL[k]})"
+                    for k, v in errs.items())
+        + f"; nonconv card {got['nonconv'].tolist()} cpu "
+        f"{ref['nonconv'].tolist()}")
+
+    # photolysis alone: the CPU run's last state, on each device, in the
+    # model's dtype
+    for dtype, name in ((torch.float64, "float64"),
+                        (torch.float32, "float32")):
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            model = models[dev]
+            if dtype != torch.float64:
+                model = Model(chem_t_config(inpdir, mechdir, name),
+                              device=dev)
+                model.init_state(1)
+            st = last.map(lambda x: x.to(dev, dtype)
+                          if x.is_floating_point() else x.to(dev))
+            res[dev] = model._photolysis(st).double().cpu().numpy()
+        err = rows_err(res[DEVICE], res["cpu"])
+        log(f"photolysis card vs cpu ({name}, 2 columns at 00:00 and 12:00,"
+            f" the same inputs): max err {err:.3e} of each slot's largest "
+            f"value (tol {PHOT_TOL[dtype]})")
+        check(np.isfinite(res[DEVICE]).all(), f"non-finite J-rates {name}")
+        check(err <= PHOT_TOL[dtype], f"photolysis {name}: card vs CPU "
+              f"{err:.3e}")
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
     from nvcc -Xptxas -v output."""
@@ -865,7 +1193,9 @@ def ptxas_report(text: str) -> dict:
 
 def check_ptxas(text: str) -> None:
     """Logs each kernel's registers and spills; fails if a variant of the
-    inverse on the chemistry path (float64, m = 80 and 101) spills."""
+    inverse on a chemistry path spills: float64 m = 80 and 101 (the tot
+    solve, phase 6), m = 4 and 95 in float32 and float64 (the chem=T
+    minute and its card-vs-CPU run, phases 8-9)."""
     if not text:
         log("ptxas: library loaded from the build cache, no log")
         return
@@ -879,9 +1209,12 @@ def check_ptxas(text: str) -> None:
             f"{r.get('registers')} registers, {r.get('stack')} B stack, "
             f"{r.get('spill_stores')} / {r.get('spill_loads')} B spill "
             f"stores / loads")
-    for m in (80, 101):
-        p = lu_cuda.launch_plan(m, torch.float64)
-        key = f"gj_inverse_kernelIdLi{p.tx}ELi{p.ry}ELi{p.rx}E"
+    for m, dtype in ((80, torch.float64), (101, torch.float64),
+                     (4, torch.float32), (95, torch.float32),
+                     (4, torch.float64), (95, torch.float64)):
+        p = lu_cuda.launch_plan(m, dtype)
+        t = "d" if dtype == torch.float64 else "f"
+        key = f"gj_inverse_kernelI{t}Li{p.tx}ELi{p.ry}ELi{p.rx}E"
         hits = [r for n, r in rep.items() if key in n]
         check(len(hits) == 1, f"ptxas: no single entry for {key}")
         check(hits[0].get("spill_stores") == 0 == hits[0].get("spill_loads"),
@@ -914,18 +1247,25 @@ def main() -> int:
         f"(nvcc {build.build_seconds if build.build_seconds else 0.0:.2f} s)")
     check_ptxas(build.ptxas_log)
 
+    from mistra_tpu_torch.chemistry import lu_cuda
     kernels = phase_kernels(growth, bott_cuda)
-    with tempfile.TemporaryDirectory(prefix="mistra_inp_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="mistra_inp_") as tmp, \
+            tempfile.TemporaryDirectory(prefix="mistra_gas_") as gas_tmp:
         inpdir = input_dir(tmp)
+        gasdir, _ = gas_mechanism_dir(gas_tmp)
         counts, main = phase_main(inpdir, bott_cuda)
         phase_device_vs_cpu(inpdir)
         phase_radiation(inpdir)
-    with tempfile.TemporaryDirectory(prefix="mistra_mech_") as tmp:
-        mech, reference = chem_mechanism(tmp)
-    lu_results = phase_lu(mech, reference)
-    counts["batched_inv"], ros3_iterations, main["chemistry"] = phase_chem(
-        mech, reference)
-    phase_chem_device_vs_cpu(mech, reference)
+        with tempfile.TemporaryDirectory(prefix="mistra_mech_") as mtmp:
+            mech, reference = chem_mechanism(mtmp)
+        lu_results = phase_lu(mech, reference)
+        lu_chem_t = phase_lu_chem_t(gasdir)
+        counts["batched_inv"], ros3_iterations, main["chemistry"] = \
+            phase_chem(mech, reference)
+        phase_chem_device_vs_cpu(mech, reference)
+        chem_t_counts, chem_t_iterations, main["chem_t_minute"] = \
+            phase_chem_t(inpdir, gasdir, bott_cuda, lu_cuda)
+        phase_chem_t_device_vs_cpu(inpdir, gasdir)
 
     rows = []
     for name, line in (("bott_dwsum", 204), ("bott_advect", 173)):
@@ -934,6 +1274,9 @@ def main() -> int:
                      "replaces": f"mistra_tpu/physics/bott_pallas.py:{line}",
                      "launches": counts[name],
                      "launches_per_minute": counts[name] / MAIN_MINUTES,
+                     "launches_chem_t": chem_t_counts[name],
+                     "launches_per_chem_t_minute":
+                         chem_t_counts[name] / CHEM_T_MINUTES,
                      "main_path_rows_ms": main["main_path_rows"][
                          name.replace("bott_", "") + "_ms"],
                      **kernels[name]})
@@ -950,6 +1293,22 @@ def main() -> int:
         "launches": counts["batched_inv"],
         "launches_per_ros3_iteration":
             counts["batched_inv"] / ros3_iterations,
+        "launches_chem_t": chem_t_counts["batched_inv"],
+        "launches_per_chem_t_minute":
+            chem_t_counts["batched_inv"] / CHEM_T_MINUTES,
+        "chem_t_minute": {
+            "launches_per_ros3_iteration":
+                chem_t_counts["batched_inv"] / chem_t_iterations,
+            # the path's own calls: float32 stage matrices, the bins of
+            # m = 4 and the gas core of m = 95, one of each per iteration
+            **{k: sum(r[k] for (dt, _, kind), r in lu_chem_t.items()
+                      if dt == torch.float32 and kind == "stage")
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "shapes": [{k: r[k] for k in (
+                "shape", "rel_err", "bit_equal", "residual",
+                "linalg_residual", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "roofline_share", "plan",
+                "blocks_per_sm")} for r in lu_chem_t.values()]},
         "max_abs_err": max(r["max_abs_err"] for r in main_calls),
         **inv,
         "bound_by": "+".join(sorted({r["bound_by"] for r in main_calls})),

@@ -410,3 +410,164 @@ def write_synthetic_multiphase_mechanism(mechdir, n_gas: int = 101,
         with open(path, "w") as f:
             f.write(text)
     return paths
+
+
+# the reference gas mechanism's shape: 95 gas species and 323 gas-phase
+# reactions in master_gas.eqn, plus gas.eqn's 8 het-on-dry-aerosol
+# reactions with 7 binned products (NVAR=102, NREACT=331)
+_GAS_RXN_PER_95 = 323
+# gas.eqn's het reactions: (reactant, products, bin, fdhetg species slot)
+_HET_REACTIONS = (
+    ("HNO3", "HNO3l1", 1, 1), ("N2O5", "2 HNO3l1", 1, 2),
+    ("NH3", "NH3l1 + DUMM1", 1, 3), ("H2SO4", "SO4l1", 1, 4),
+    ("HNO3", "HNO3l2", 2, 1), ("N2O5", "2 HNO3l2", 2, 2),
+    ("NH3", "NH3l2", 2, 3), ("H2SO4", "SO4l2", 2, 4),
+)
+# named gas species, in the order a small stand-in takes them: (name,
+# molar mass [kg/mol], ground mixing ratio [ppb], emission
+# [molec/cm2/s]).  The first five are the het reactants; the rest are
+# looked up by name in the drivers (Henry table, effective-solubility
+# corrections, fixed deposition velocities, the halogen profiles).
+_NAMED_GAS = (
+    ("HNO3", 63.0e-3, 0.1, 0.0), ("N2O5", 108.0e-3, 1.0e-3, 0.0),
+    ("NH3", 17.0e-3, 0.5, 5.0e9), ("H2SO4", 98.0e-3, 1.0e-4, 0.0),
+    ("HCl", 36.5e-3, 0.1, 0.0), ("O3", 48.0e-3, 30.0, 0.0),
+    ("NO", 30.0e-3, 0.05, 1.0e9), ("NO2", 46.0e-3, 0.1, 0.0),
+    ("OH", 17.0e-3, 1.0e-4, 0.0), ("HO2", 33.0e-3, 1.0e-3, 0.0),
+    ("SO2", 64.0e-3, 0.1, 0.0), ("DMS", 62.0e-3, 0.1, 3.0e9),
+    ("HOCl", 52.5e-3, 1.0e-3, 0.0), ("Cl2", 71.0e-3, 1.0e-4, 0.0),
+    ("HOBr", 97.0e-3, 1.0e-3, 0.0), ("Br2", 160.0e-3, 1.0e-4, 0.0),
+    ("HOI", 144.0e-3, 1.0e-3, 0.0), ("I2", 254.0e-3, 1.0e-5, 0.0),
+    ("CH3I", 142.0e-3, 1.0e-3, 1.0e8), ("HCHO", 30.0e-3, 0.3, 0.0),
+    ("NO3", 62.0e-3, 1.0e-3, 0.0), ("HONO", 47.0e-3, 0.01, 0.0),
+    ("HNO4", 79.0e-3, 0.01, 0.0), ("H2O2", 34.0e-3, 1.0, 0.0),
+    ("C2H6", 30.0e-3, 1.0, 0.0), ("ETHE", 28.0e-3, 0.1, 0.0),
+    ("PAN", 121.0e-3, 0.05, 0.0), ("ALD2", 44.0e-3, 0.1, 0.0),
+    ("ACTA", 60.0e-3, 0.1, 0.0), ("ROOH", 48.0e-3, 0.5, 0.0),
+    ("MO2", 47.0e-3, 1.0e-3, 0.0), ("O1D", 16.0e-3, 1.0e-9, 0.0),
+    ("O3P", 16.0e-3, 1.0e-6, 0.0), ("CH3OH", 32.0e-3, 0.5, 0.0),
+    ("C2H5OH", 46.0e-3, 0.1, 0.0), ("ClNO3", 97.5e-3, 1.0e-3, 0.0),
+    ("BrNO3", 142.0e-3, 1.0e-3, 0.0), ("HBr", 81.0e-3, 1.0e-3, 0.0),
+    ("BrCl", 115.5e-3, 1.0e-4, 0.0), ("IO", 143.0e-3, 1.0e-4, 0.0),
+    ("OIO", 159.0e-3, 1.0e-4, 0.0), ("INO2", 173.0e-3, 1.0e-4, 0.0),
+    ("INO3", 189.0e-3, 1.0e-4, 0.0), ("HI", 128.0e-3, 1.0e-4, 0.0),
+    ("I2O2", 286.0e-3, 1.0e-5, 0.0), ("ICl", 162.5e-3, 1.0e-5, 0.0),
+    ("IBr", 207.0e-3, 1.0e-5, 0.0), ("CH2I2", 268.0e-3, 1.0e-4, 5.0e7),
+    ("CH2ClI", 176.5e-3, 1.0e-4, 5.0e7), ("C3H7I", 170.0e-3, 1.0e-4, 0.0),
+    ("DMSO", 78.0e-3, 0.01, 0.0), ("DMSO2", 94.0e-3, 0.01, 0.0),
+    ("CH3SO2H", 80.0e-3, 1.0e-3, 0.0), ("CH3SO3H", 96.0e-3, 0.01, 0.0),
+)
+# the photol_j slots (1-based) that the photolysis code fills
+_J_SLOTS = tuple(k for k in range(1, 48) if k != 45)
+
+
+def write_synthetic_gas_mechanism(mechdir, n_gas: int = 95, seed: int = 0):
+    """Write ``master_gas.eqn``, ``gas.eqn``, ``gas_species.csv`` and
+    ``euler_in.dat`` of a stand-in gas mechanism into ``mechdir``; returns
+    the four paths.
+
+    NOT the reference's chemistry: apart from gas.eqn's het reactions, the
+    reactions and rate constants are random, drawn from ``seed``.  What it
+    shares with the reference's gas mechanism is its shape and the names
+    the drivers look up.  At the defaults ``load_gas_mechanism`` gives
+    n_gas = 95 gas species plus the 7 binned products of the 8
+    het-on-dry-aerosol reactions (``HNO3l1``, ``DUMM1``, ``NH3l1``,
+    ``SO4l1``, ``HNO3l2``, ``NH3l2``, ``SO4l2``): nvar 102 and 331
+    reactions, so ``GasKernel`` picks the block-arrow solver (2 bins of
+    ma = 4, a gas core of mg = 95).  The first gas species carry the
+    reference's names (``_NAMED_GAS``: HNO3, N2O5, NH3, H2SO4, HCl, then
+    names of the Henry table and the halogen list), the rest are
+    ``G000``..; n_gas must be at least 5.  Mixing ratios stay at or below
+    30 ppb (the real reservoirs, CO2, CH4, CO and H2, are left out).
+
+    Rate expressions: the het reactions are ``xhet1*fdhetg(1, s)`` and
+    ``xhet2*fdhetg(2, s)``, as in gas.eqn; the gas reactions are
+    ``farr``/``farr2`` first- and second-order conversions, reactions with
+    the fixed O2, and about a quarter are photolysis ``ph_rat(k)``.
+    Every gas reaction turns n molecules of variable species into n (or
+    into fewer), so no chain can grow the total.  The first-order rates
+    span ~1e-3..1e1 1/s and the second-order ones the same at the
+    species' ppb-level concentrations: stiff over a 10-s substep, and
+    solvable in float32 as in float64.
+    """
+    if n_gas < 5:
+        raise ValueError(f"n_gas must be at least 5, got {n_gas}")
+    rng = np.random.default_rng(seed)
+    named = list(_NAMED_GAS[:n_gas])
+    for i in range(n_gas - len(named)):
+        named.append((f"G{i:03d}", float(rng.uniform(0.03, 0.15)),
+                      _log_uniform(rng, -3.0, 1.0), 0.0))
+    gas = [s[0] for s in named]
+    # typical concentrations [mol/m3] at ~42 mol/m3 of air
+    ctyp = [max(s[2], 1.0e-4) * 4.2e-8 for s in named]
+
+    def other(i, avoid=()):
+        while True:
+            j = int(rng.integers(n_gas))
+            if j != i and gas[j] not in avoid:
+                return j
+
+    lines = ["#EQUATIONS", "{--- synthetic stand-in, not the reference "
+             "mechanism ---}"]
+    n_rxn = (_GAS_RXN_PER_95 * n_gas) // 95
+    for r in range(n_rxn):
+        i, kind = r % n_gas, r // n_gas
+        s = gas[i]
+        if kind == 0:
+            # bimolecular, two reactants to two products; k is such that
+            # neither reactant's loss rate exceeds k1 at their typical
+            # concentrations
+            b = other(i)
+            p, q = other(i, (gas[b],)), other(i, (gas[b],))
+            k1 = _log_uniform(rng, -4.0, 0.0)
+            rate = _farr2_expr(rng, k1 / max(ctyp[i], ctyp[b]))
+            lines.append(f"{{SG{r}}} {s} + {gas[b]} = {gas[p]} + {gas[q]} "
+                         f": {rate} ;")
+        elif kind == 1:
+            lines.append(f"{{SG{r}}} {s} = {gas[other(i)]} : "
+                         f"{_farr_expr(rng, _log_uniform(rng, -4.0, 0.0))} ;")
+        elif kind == 2 and i % 2:
+            lines.append(f"{{SG{r}}} {s} + O2 = {gas[other(i)]} : "
+                         f"{_log_uniform(rng, -5.0, -2.0):.6e} ;")
+        else:
+            slot = int(rng.choice(_J_SLOTS))
+            lines.append(f"{{SG{r}}} {s} + hv = {gas[other(i)]} : "
+                         f"ph_rat({slot}) ;")
+    gas_text = "\n".join(lines) + "\n"
+
+    het = ["#INCLUDE master_gas.eqn", "#EQUATIONS",
+           "{--- het reactions on dry aerosol (gas.eqn's form) ---}"]
+    for k, (reac, prods, b, slot) in enumerate(_HET_REACTIONS):
+        het.append(f"{{HET{k + 1}}} {reac} = {prods} : "
+                   f"xhet{b}*fdhetg({b},{slot}) ;")
+    het_text = "\n".join(het) + "\n"
+
+    # gas_species.csv: MISTRA index, name, molar mass, ground and top
+    # mixing ratios [ppb], emission [molec/cm2/s]; one entry that no
+    # reaction uses, as the reference's list has
+    rows = ["! synthetic stand-in, not the reference's species list",
+            "! index name mass[kg/mol] ground[ppb] top[ppb] "
+            "emission[molec/cm2/s]"]
+    for i, (name, mass, grd, emis) in enumerate(named):
+        top = grd * float(rng.uniform(0.3, 1.5))
+        rows.append(f"{i + 1} {name} {mass:.4E} {grd:.6e} {top:.6e} "
+                    f"{emis:.3e}")
+    rows.append(f"{n_gas + 1} NOTINMECH 1.0000E-01 1.0e-3 1.0e-3 0.0")
+
+    # euler_in.dat: the advected species as (MISTRA index, xadv in
+    # mol/mol/day); index 0 and an index without a species are skipped
+    adv = [(1 + i, float(rng.uniform(-2.0, 5.0)) * 1.0e-9)
+           for i in range(0, n_gas, 7)]
+    euler = ["! synthetic stand-in: eulerian advection source",
+             f"{len(adv) + 2}"]
+    euler += [f"{g} {x:.4e}".replace("e", "d") for g, x in adv]
+    euler += ["0 1.0d-9", f"{n_gas + 50} 1.0d-9"]
+
+    mechdir = str(mechdir).rstrip("/")
+    paths = (f"{mechdir}/master_gas.eqn", f"{mechdir}/gas.eqn",
+             f"{mechdir}/gas_species.csv", f"{mechdir}/euler_in.dat")
+    for path, text in zip(paths, (gas_text, het_text, "\n".join(rows) + "\n",
+                                  "\n".join(euler) + "\n")):
+        with open(path, "w") as f:
+            f.write(text)
+    return paths

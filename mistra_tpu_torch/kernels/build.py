@@ -1,10 +1,11 @@
 """Build the CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so one nvcc
-call builds them all into one shared library in seconds.  The library is
-cached in ``mistra_tpu_torch/_build/`` under a hash of the sources and the
-flags, built at first use and never at import: the package imports on a
-machine without nvcc or a GPU.
+The sources have a plain C interface (no PyTorch headers): one nvcc per
+source compiles them all at once, in parallel, and one more links the
+objects into one shared library, in seconds.  The library is cached in
+``mistra_tpu_torch/_build/`` under a hash of the sources and the flags,
+built at first use and never at import: the package imports on a machine
+without nvcc or a GPU.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ BUILD_DIR = PKG_DIR / "_build"
 
 # sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 # rounded, as in the plain torch versions the kernels are held against
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                           "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures of csrc/bott.cu and csrc/lu.cu
@@ -72,22 +73,38 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     global build_seconds, ptxas_log
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
+    jobs = []
+    for src in sources():
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    # wait for every compile before looking at any, so that no nvcc is
+    # left running when one fails
+    logs = [proc.communicate()[1] for _, _, proc in jobs]
+    for (cmd, _, proc), err in zip(jobs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
-    ptxas_log = res.stderr
+    ptxas_log = "".join(logs)
     return so
 
 

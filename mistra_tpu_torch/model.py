@@ -1,11 +1,12 @@
 """Model assembly: the operator-splitting timestep schedule, in torch.
 
-Counterpart of ``mistra_tpu.model`` for the BTZ96 column step (mic=T,
-chem=F, water surface).  The reference's two-level time loop (outer
-1-minute steps, inner 6 x 10-s substeps; str.f90:324-535): ``substep``
-applies the fast physics in the reference's fixed order and
+Counterpart of ``mistra_tpu.model`` for the column step with mic=T and a
+water surface, with chemistry off (the BTZ96 configuration) or with the
+gas-phase chemistry on (chem=T, nkc_l=0).  The reference's two-level time
+loop (outer 1-minute steps, inner 6 x 10-s substeps; str.f90:324-535):
+``substep`` applies the fast physics in the reference's fixed order and
 ``minute_step`` wraps six substeps between the once-per-minute clock,
-deposition and solar-geometry updates.
+deposition, solar-geometry, radiation and photolysis updates.
 
 There is no jit: every step is eager Python over tensors of B columns on
 the model's device.  Initialisation runs on the host (numpy and torch on
@@ -17,8 +18,17 @@ PIFM2 radiation (``radiation/``) is on by default, as in the JAX package:
 the Mie files from ``cfg.inpdir`` (and raises without them), and
 ``post_minute`` calls it after the solar zenith angle.  Set
 ``model.radiation_enabled = False`` before ``init_state`` to run without
-it.  Configurations outside the slice (chem=T, mic=F, isurf=1, box and
-chamber modes) raise.
+it.
+
+With chem=True (and nkc_l=0, the JAX package's gas-phase path) the model
+runs ``chemistry.driver.ChemistryDriver`` on ``cfg.mechdir``'s mechanism
+and, with radiation on, ``photolysis.jrates.PhotolysisDriver`` on
+``cfg.inpdir``'s ``photolys/`` tables: ``difc`` after ``difm``; dry
+deposition, surface exchange, the optional Eulerian source (neula=0) and
+the stiff Ros3 solve of every interior layer after the surface; the
+J-rates at init and on even minutes when the sun is up.  Configurations
+outside the slice (the multiphase driver, chem=T with nkc_l>0;
+nucleation; mic=F, isurf=1, box and chamber modes) raise.
 """
 
 from __future__ import annotations
@@ -76,8 +86,9 @@ class Model:
     """Owns configuration, grids and tables; provides the step functions.
 
     Args:
-      cfg: the run configuration (mic=True, chem=False, isurf=0, neither
-        box nor chamber mode).
+      cfg: the run configuration (mic=True, isurf=0, neither box nor
+        chamber mode; chem=False, or chem=True with nkc_l=0 and no
+        nucleation).
       device: where the state and every step run: the card by default
         (raises on a host without one); "cpu" runs the plain versions.
       band: Bott walk band J (walks longer than J bins per substep are
@@ -88,7 +99,9 @@ class Model:
     def __init__(self, cfg: MistraConfig, device="cuda",
                  band: int = growth.BAND,
                  newton_iters: int = growth.NEWTON_ITERS):
-        unported = {"chem=True": cfg.chem, "mic=False": not cfg.mic,
+        unported = {"chem=True with nkc_l>0 (the multiphase driver)":
+                     cfg.chem and cfg.nkc_l > 0,
+                     "nuc=True": cfg.nuc, "mic=False": not cfg.mic,
                      "isurf=1": cfg.isurf != 0, "box": cfg.box,
                      "chamber": cfg.chamber}
         for name, on in unported.items():
@@ -106,6 +119,8 @@ class Model:
         self.b0m = None
         self.radiation_enabled = True
         self._radiation = None  # installed by init_state
+        self._chemistry = None
+        self._photolysis = None
         self._const_tensors: dict = {}
         # grids and tables in the compute dtype, on the model's device
         self.atm = atm_tensors(self.grids.atm, self.dtype, self.device)
@@ -132,7 +147,7 @@ class Model:
     # ------------------------------------------------------------------
     def init_state(self, B: int = 1) -> ModelState:
         """Initial state of B identical columns on the model's device
-        (init sequence of str.f90:72-321, chemistry off)."""
+        (init sequence of str.f90:72-321)."""
         cfg = self.cfg
         cpu = torch.device("cpu")
         state, consts = initial_state(cfg, self.grids, self.clarke)
@@ -140,6 +155,13 @@ class Model:
         if self.radiation_enabled and self._radiation is None:
             from .radiation.driver import RadiationDriver
             self._radiation = RadiationDriver(self)
+        if cfg.chem and self._chemistry is None:
+            from .chemistry.driver import ChemistryDriver
+            self._chemistry = ChemistryDriver(self)
+        if (cfg.chem and self._photolysis is None
+                and self._radiation is not None):
+            from .photolysis.jrates import PhotolysisDriver
+            self._photolysis = PhotolysisDriver(self, self._radiation)
         atm = atm_tensors(self.grids.atm, self.dtype, cpu)
         turb = atk0(state.met, state.turb, state.surf, atm, cfg.ug, cfg.vg,
                     cfg.z0)
@@ -152,10 +174,30 @@ class Model:
         u0 = solar_zenith(state.tim.lst, state.tim.lmin, self.astro.alat,
                           self.astro.declin, self.dtype)
         state = state.replace(rad=state.rad.replace(u0=u0))
+        # initial chemistry concentrations
+        if self._chemistry is not None:
+            state = state.replace(chem=self._chemistry.init_chem_state(state))
         # initial radiation call, on the host column
         if self._radiation is not None:
             state = self._radiation(state, init=True)
+        # initial photolysis rates, computed whatever the sun's height
+        if self._photolysis is not None:
+            state = self.photolysis_step(
+                state, torch.ones_like(state.rad.u0, dtype=torch.bool))
         return repeat_columns(state.to(self.device), B)
+
+    def photolysis_step(self, state: ModelState, due) -> ModelState:
+        """state with photol_j recomputed in the columns where due [B] is
+        true, held in the others, and zero where the sun is low (u0 <=
+        u0min, str.f90:445-476).  The batch is computed when any column is
+        due (one host check); the JAX package decides per column."""
+        u0 = state.rad.u0
+        pj = state.chem.photol_j
+        if bool(due.any()):
+            pj = torch.where(due[:, None, None], self._photolysis(state), pj)
+        pj = torch.where((u0 > self._chemistry.u0min)[:, None, None], pj,
+                         0.0)
+        return state.replace(chem=state.chem.replace(photol_j=pj))
 
     # ------------------------------------------------------------------
     def substep(self, state: ModelState, dd: float) -> ModelState:
@@ -170,6 +212,13 @@ class Model:
             cfg.ug, cfg.vg)
         state = state.replace(met=met, turb=turb,
                               tim=state.tim.replace(kinv=kinv))
+
+        # turbulent exchange of chemical species
+        if self._chemistry is not None:
+            out = diffusion.difc({"c": state.chem.sgas.transpose(1, 2)},
+                                 state.met, state.turb, self.atm, dd)
+            state = state.replace(chem=state.chem.replace(
+                sgas=out["c"].transpose(1, 2)))
 
         # particle diffusion, condensational growth, settling, then the
         # levels above nf back onto the Koehler curve
@@ -196,6 +245,19 @@ class Model:
             rhsurf=cfg.rhsurf, ltwcst=cfg.ltwcst, ntwopt=cfg.ntwopt)
         state = state.replace(met=met, surf=surf_state)
 
+        # gas-phase chemistry: surface exchange then stiff integration
+        if self._chemistry is not None:
+            chemistry = self._chemistry
+            chem = state.chem.replace(vg=chemistry.gasdrydep(state))
+            chem = chemistry.sedc(chem, dd, self.atm.deta[1],
+                                  self.atm.detw[1])
+            state = state.replace(chem=chem)
+            # eulerian advective source below the inversion (neula=0)
+            if cfg.neula == 0:
+                state = state.replace(chem=chemistry.eulerian_advection(
+                    state.chem, state.tim.kinv, chemistry.am3, dd))
+            state = state.replace(chem=chemistry.integrate_column(state, dd))
+
         tim = state.tim.replace(time=state.tim.time + dd)
         return state.replace(tim=tim)
 
@@ -215,17 +277,23 @@ class Model:
         return state.replace(micro=state.micro.replace(vd=vd, xra=xra))
 
     def post_minute(self, state: ModelState) -> ModelState:
-        """Solar geometry and radiative transfer (per minute; photolysis
-        is not ported yet)."""
+        """Solar geometry, radiative transfer and photolysis (per
+        minute)."""
         u0 = solar_zenith(state.tim.lst, state.tim.lmin, self.astro.alat,
                           self.astro.declin, self.dtype)
         state = state.replace(rad=state.rad.replace(u0=u0))
         if self._radiation is not None:
             state = self._radiation(state, init=False)
+        # photolysis rates: recompute on even minutes when the sun is up,
+        # hold when sun up on odd minutes, zero when dark (str.f90:445-476)
+        if self._photolysis is not None:
+            due = (u0 > self._chemistry.u0min) & (state.tim.lmin % 2 == 0)
+            state = self.photolysis_step(state, due)
         return state
 
     def minute_step(self, state: ModelState) -> ModelState:
-        """One outer 1-minute step: clock, 6 substeps, radiation."""
+        """One outer 1-minute step: clock, 6 substeps, radiation and
+        photolysis."""
         state = self.pre_minute(state)
         for _ in range(6):
             state = self.substep(state, 10.0)

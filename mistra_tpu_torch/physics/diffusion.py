@@ -1,10 +1,10 @@
 """Semi-implicit vertical diffusion operators over a column batch.
 
 Torch counterpart of ``mistra_tpu.physics.diffusion``: ``difm``
-(momentum/heat/moisture/TKE, str.f90:2944-3131) and ``difp`` (the 2-D
-particle spectrum, str.f90:3137-3265).  All fields sharing an
-exchange-coefficient set are solved in one Thomas sweep with a trailing
-field axis.  ``difc`` (chemistry only) is not ported yet.
+(momentum/heat/moisture/TKE, str.f90:2944-3131), ``difp`` (the 2-D
+particle spectrum, str.f90:3137-3265) and ``difc`` (chemical species).
+All fields sharing an exchange-coefficient set are solved in one Thomas
+sweep with a trailing field axis.
 
 The JAX ``.at[...]`` updates become out-of-place concatenations.
 """
@@ -103,3 +103,32 @@ def difp(micro, met, turb, grid, dt):
 
     fsum = torch.cat([micro.fsum[:, :1], ff[..., 1:].sum(dim=(1, 2))], dim=1)
     return micro.replace(ff=ff, fsum=fsum)
+
+
+def difc(fields_dict, met, turb, grid, dt):
+    """Implicit diffusion + subsidence of chemical species.
+
+    ``fields_dict`` maps names to [B, n, ...] concentration tensors; all
+    are solved with the heat exchange coefficient in one batched sweep.
+    Bottom boundary uses the first interior level (no surface reservoir),
+    mirroring the reference's treatment of s1/s3/sl1/sion1.
+    """
+    detw, deta = grid.detw, grid.deta
+    names = list(fields_dict)
+    B, n = fields_dict[names[0]].shape[:2]
+    flats = [fields_dict[name].reshape(B, n, -1) for name in names]
+    stacked = torch.cat(flats, dim=2)
+
+    xa, xc = diffusion_coefficients(turb.atkh, detw, deta, dt)
+    stacked = implicit_sweep(xa, xc, stacked, bottom=stacked[:, 1])
+    c = met.w * dt / deta
+    stacked = subsidence(stacked, c)
+
+    out = {}
+    offset = 0
+    for name, flat in zip(names, flats):
+        size = flat.shape[2]
+        out[name] = stacked[:, :, offset:offset + size].reshape(
+            fields_dict[name].shape)
+        offset += size
+    return out

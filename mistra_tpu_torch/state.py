@@ -5,7 +5,8 @@ shapes and adds the ensemble axis with ``jax.vmap``; here the column axis
 ``B`` is written out as the first dimension of every field, and the
 per-column layouts behind it are those of the JAX package (``ff`` is
 ``[B, nkt, nka, n]``, ``totrad`` is ``[B, mb, n]``, scalars are ``[B]``,
-clock and layer indices are int32 ``[B]``).
+clock and layer indices are int32 ``[B]``).  ``chem`` is the gas-phase
+chemistry state (``GasChemState``) with chem=True and None otherwise.
 
 Updates are out of place: every physics function returns new dataclasses
 built with ``replace``, as the JAX functions do.
@@ -29,10 +30,15 @@ class _Fields:
         return dataclasses.replace(self, **kw)
 
     def map(self, fn):
+        """fn applied to every tensor; a sub-state that is None (chem
+        with chemistry off) stays None."""
         out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            out[f.name] = v.map(fn) if isinstance(v, _Fields) else fn(v)
+            if v is None:
+                out[f.name] = None
+            else:
+                out[f.name] = v.map(fn) if isinstance(v, _Fields) else fn(v)
         return type(self)(**out)
 
     def to(self, device):
@@ -131,6 +137,17 @@ class TimeState(_Fields):
 
 
 @dataclass
+class GasChemState(_Fields):
+    """Gas-phase chemistry state (``chemistry.driver``)."""
+    sgas: torch.Tensor      # [B, nvar, n] concentrations [mol/m3]
+    vg: torch.Tensor        # [B, nvar] dry deposition velocity [m/s]
+    photol_j: torch.Tensor  # [B, nphrxn, n] photolysis rates [1/s]
+    # cumulative count of (cell, substep) stiff-solver non-convergences
+    # per column (cells frozen at max_steps; gas.f:764-767)
+    nonconv: torch.Tensor   # [B] int32
+
+
+@dataclass
 class ModelState(_Fields):
     met: MetState
     turb: TurbState
@@ -138,10 +155,13 @@ class ModelState(_Fields):
     micro: MicroState
     rad: RadState
     tim: TimeState
+    # the gas-phase chemistry state when chem=True, else None
+    chem: GasChemState | None = None
 
 
 _SUBSTATES = {"met": MetState, "turb": TurbState, "surf": SurfaceState,
-              "micro": MicroState, "rad": RadState, "tim": TimeState}
+              "micro": MicroState, "rad": RadState, "tim": TimeState,
+              "chem": GasChemState}
 
 
 def torch_dtype(cfg: MistraConfig) -> torch.dtype:
@@ -189,12 +209,15 @@ def state_from_numpy(tree, B: int) -> ModelState:
 
     ``tree`` is any object with the attributes of the per-column JAX
     ``ModelState`` (``tree.met.t`` and so on), for example
-    ``jax.tree.map(np.asarray, state)``.  Integer fields become int32;
+    ``jax.tree.map(np.asarray, state)``; its ``chem``, where present and
+    not None, is the JAX ``GasChemState``.  Integer fields become int32;
     floating fields keep their dtype.  Move the result with ``.to(device)``.
     """
     subs = {}
     for sub, cls in _SUBSTATES.items():
-        src = getattr(tree, sub)
+        src = getattr(tree, sub, None)
+        if src is None:
+            continue
         vals = {}
         for f in dataclasses.fields(cls):
             a = np.asarray(getattr(src, f.name))

@@ -3,10 +3,12 @@ PyTorch port (tests/test_torch_*.py).
 
 Both packages are built on the same tiny grid from the same synthetic
 ``clarke.dat`` (the reference's input tables are not in the repository),
-with radiation off, or on with the synthetic PIFM2 and Mie tables; the JAX
-state and the constants its init returns are carried across to the port
-with ``state_from_numpy``.  Inputs beyond the initial state are made with
-numpy from a fixed seed.
+with radiation off, or on with the synthetic PIFM2 and Mie tables, and
+with chemistry off, or on (chem=T, nkc_l=0) with the synthetic photolysis
+tables and a small synthetic gas mechanism; the JAX state and the
+constants its init returns are carried across to the port with
+``state_from_numpy``.  Inputs beyond the initial state are made with numpy
+from a fixed seed.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ import mistra_tpu_torch as pt
 from mistra_tpu.config import GridParams, MistraConfig
 from mistra_tpu.model import Model as JaxModel
 from mistra_tpu.radiation.driver import RadiationDriver as JaxRadiation
+from mistra_tpu_torch.chemistry.mech import write_synthetic_gas_mechanism
+from mistra_tpu_torch.photolysis.tables import \
+    write_synthetic_photolysis_tables
 from mistra_tpu_torch.physics.surface import write_synthetic_clarke_table
 from mistra_tpu_torch.radiation.tables import \
     write_synthetic_radiation_tables
@@ -32,9 +37,14 @@ BTZ96 = dict(chem=False, mic=True, tw=288.15, zinv=100.0, dtinv=7.0, ug=8.5,
 # the port's column batch in the tests: two or more columns check that the
 # batch axis carries independent columns
 B = 2
+# gas species of the small synthetic gas mechanism (plus its 7 binned het
+# products): enough for every name the drivers look up, few enough that
+# the JAX chemistry minute compiles in well under a minute
+N_GAS = 20
 
 
-def make_models(inpdir, dtype="float64", radiation=False):
+def make_models(inpdir, dtype="float64", radiation=False, mechdir=None,
+                **cfg):
     """(JAX model, port model, JAX initial state) on the tiny grid, with
     radiation on in both or in neither.
 
@@ -42,11 +52,21 @@ def make_models(inpdir, dtype="float64", radiation=False):
     and the JAX init's radiation call is made jitted: the JAX init makes
     it op by op, which takes ~40 s on a CPU for the same result (the call
     reads only the state that the rest of the init has made).
+
+    With mechdir, both run the gas-phase chemistry (chem=True, nkc_l=0) of
+    the small synthetic gas mechanism written there, and photolysis on the
+    synthetic tables written to inpdir; the JAX init's photolysis call is
+    jitted too, after its radiation call, as the JAX init orders them.
+    Further keywords go into both configurations.
     """
     write_synthetic_clarke_table(inpdir)
     if radiation:
         write_synthetic_radiation_tables(inpdir)
-    kw = dict(BTZ96, dtype=dtype, inpdir=str(inpdir))
+    kw = dict(BTZ96, dtype=dtype, inpdir=str(inpdir), **cfg)
+    if mechdir is not None:
+        write_synthetic_photolysis_tables(inpdir)
+        write_synthetic_gas_mechanism(mechdir, N_GAS)
+        kw.update(chem=True, nkc_l=0, mechdir=str(mechdir))
     jm = JaxModel(MistraConfig(grid=GridParams(**TINY_GRID), **kw))
     jm.radiation_enabled = False
     js = jm.init_state()
@@ -55,6 +75,12 @@ def make_models(inpdir, dtype="float64", radiation=False):
         jm._radiation = JaxRadiation(jm)
         jm._radiation.build_static(js)
         js = jax.jit(jm._radiation)(js)
+    if radiation and mechdir is not None:
+        from mistra_tpu.photolysis.jrates import PhotolysisDriver
+        jm._photolysis = PhotolysisDriver(jm, jm._radiation)
+        pj = jnp.where(js.rad.u0 > jm._chemistry.u0min,
+                       jax.jit(jm._photolysis)(js), 0.0)
+        js = js.replace(chem=js.chem.replace(photol_j=pj))
     tm = pt.Model(pt.MistraConfig(grid=pt.GridParams(**TINY_GRID), **kw),
                   device="cpu")
     tm.radiation_enabled = radiation
@@ -80,6 +106,8 @@ def to_port_columns(states):
 
     def cat(objs):
         first = objs[0]
+        if first is None:
+            return None
         if torch.is_tensor(first):
             return torch.cat(objs, dim=0)
         return type(first)(**{f: cat([getattr(o, f) for o in objs])
@@ -166,6 +194,35 @@ def assert_substate_close(want, got, tol, what=""):
             assert_equal_int(w, g, f"{what}.{name}")
 
 
+def assert_rows_close(want, got, tol, what=""):
+    """Every column of the port's got [B, R, ...] matches the JAX want
+    [R, ...] within tol of each row's largest magnitude over the levels
+    and columns (a row that is zero everywhere must stay zero)."""
+    a = np.asarray(want, dtype=np.float64)
+    b = got.detach().cpu().numpy().astype(np.float64)
+    b = b.reshape((-1,) + a.shape)
+    scale = np.maximum(np.abs(a).reshape(a.shape[0], -1).max(1),
+                       np.abs(b).reshape(b.shape[0], b.shape[1], -1)
+                       .max(2).max(0))
+    diff = np.abs(b - a[None]).reshape(b.shape[0], b.shape[1], -1).max(2)
+    err = np.where(scale > 0.0, diff / np.where(scale > 0.0, scale, 1.0),
+                   diff).max(0)
+    worst = int(err.argmax())
+    assert err[worst] <= tol, (f"{what}: row {worst} relative error "
+                               f"{err[worst]:.3e} > {tol:.1e}")
+
+
+def assert_chem_close(want, got, tol, what="chem"):
+    """The gas-phase chemistry state: sgas and photol_j per row (species,
+    J slot), vg per field, nonconv exactly."""
+    assert_rows_close(want.sgas, got.sgas, tol, f"{what}.sgas")
+    assert_rows_close(want.photol_j, got.photol_j, tol, f"{what}.photol_j")
+    assert_close(want.vg, got.vg, tol, f"{what}.vg")
+    assert_equal_int(want.nonconv, got.nonconv, f"{what}.nonconv")
+
+
 def assert_state_close(js, ts, tol):
     for sub in ("met", "turb", "surf", "micro", "rad", "tim"):
         assert_substate_close(getattr(js, sub), getattr(ts, sub), tol, sub)
+    if getattr(js, "chem", None) is not None or ts.chem is not None:
+        assert_chem_close(js.chem, ts.chem, tol)

@@ -1,7 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: ``Model``, ``GasKernel`` and ``BlockArrowSolver`` built without a
-device take CUDA, and on a host without a card they raise instead of
-falling back to the CPU."""
+CPU: ``Model`` (chem=F and chem=T), ``GasKernel`` and ``BlockArrowSolver``
+built without a device take CUDA, and on a host without a card they raise
+instead of falling back to the CPU; a chem=T model builds its chemistry
+driver's kernel and stage solver on its own device."""
 
 from __future__ import annotations
 
@@ -12,14 +13,24 @@ import mistra_tpu_torch as pt
 from mistra_tpu_torch.chemistry import mech as tmech
 from mistra_tpu_torch.chemistry.block_solver import BlockArrowSolver
 from mistra_tpu_torch.chemistry.gas_kernel import GasKernel
+from mistra_tpu_torch.photolysis.tables import \
+    write_synthetic_photolysis_tables
 from mistra_tpu_torch.physics.surface import write_synthetic_clarke_table
+from mistra_tpu_torch.radiation.tables import \
+    write_synthetic_radiation_tables
 
 
-def model(tmp_path, **kw):
+def model(tmp_path, chem=False, **kw):
     write_synthetic_clarke_table(tmp_path)
+    extra = {}
+    if chem:
+        write_synthetic_radiation_tables(tmp_path)
+        write_synthetic_photolysis_tables(tmp_path)
+        tmech.write_synthetic_gas_mechanism(str(tmp_path), 20)
+        extra = dict(nkc_l=0, mechdir=str(tmp_path), zinv=100.0)
     cfg = pt.MistraConfig(grid=pt.GridParams(nf=20, n_extra=10, nka=16,
                                              nkt=16, nb=8),
-                          chem=False, mic=True, inpdir=str(tmp_path))
+                          chem=chem, mic=True, inpdir=str(tmp_path), **extra)
     return pt.Model(cfg, **kw)
 
 
@@ -30,6 +41,7 @@ def mechanism(tmp_path):
 
 ENTRY_POINTS = {
     "Model": model,
+    "Model chem=T": lambda p, **kw: model(p, chem=True, **kw),
     "GasKernel": lambda p, **kw: GasKernel(mechanism(p), **kw),
     "BlockArrowSolver": lambda p, **kw: BlockArrowSolver(mechanism(p), **kw),
 }
@@ -44,3 +56,13 @@ def test_entry_points_default_to_the_card(tmp_path, name):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(tmp_path)
     assert make(tmp_path, device="cpu").device == torch.device("cpu")
+
+
+def test_chem_model_builds_its_drivers_on_its_device(tmp_path):
+    m = model(tmp_path, chem=True, device="cpu")
+    state = m.init_state(1)
+    kern = m._chemistry.kernel
+    assert kern.device == kern.block.device == m.device == torch.device("cpu")
+    assert kern.stoich.device == m._chemistry.am3.device == m.device
+    assert state.chem.sgas.device == m.device
+    assert m._photolysis is not None

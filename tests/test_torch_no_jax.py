@@ -1,6 +1,7 @@
 """The PyTorch port never imports JAX: the machine that runs it on the GPU
 has no JAX.  A fresh interpreter imports the port's package, its
-radiation driver and its chemistry kernel, and finds no jax module."""
+radiation driver, its chemistry kernel, its photolysis driver and its
+gas-phase chemistry driver, and finds no jax module."""
 
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 @pytest.mark.parametrize("module", [
     "mistra_tpu_torch", "mistra_tpu_torch.radiation.driver",
-    "mistra_tpu_torch.chemistry.gas_kernel"])
+    "mistra_tpu_torch.chemistry.gas_kernel",
+    "mistra_tpu_torch.photolysis.jrates",
+    "mistra_tpu_torch.chemistry.driver"])
 def test_port_imports_no_jax(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

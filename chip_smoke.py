@@ -51,7 +51,23 @@ Phases (any failure exits non-zero):
      the photolysis call alone; one more minute under torch.profiler;
   9. the chem=T port on the card against the port on the CPU: two columns
      (00:00, 12:00), float64, two minutes, the chemistry fields included;
-     then photolysis alone, card against CPU, float64 and float32.
+     then photolysis alone, card against CPU, float64 and float32;
+ 10. multiphase minute: the settings of benchmarks/smoke_tot_full.py:51-54
+     (BTZ96 with chem=True, nkc_l=4, halo=True, iod=False; float32 state,
+     the tot solve in float64) at the production grid for 32 columns, half
+     at 00:00 and half at 12:00, two minutes with every kernel's launch
+     counter read around them; liq_parm alone; the inverse at the path's
+     own shapes and dtypes (the tot solve's aqueous blocks and gas core in
+     float64, the gas-above solve's in float32, each the input of the
+     path's first launch), bit-equal to the plain version and timed beside
+     it, torch.linalg.inv and its bound; one more minute under
+     torch.profiler, whose first dwsum and advect inputs hold both Bott
+     kernels against their plain versions, timed beside their bounds;
+ 11. the multiphase port on the card against the port on the CPU: a noon
+     and a midnight column, float64, two minutes, at the tiny grid of the
+     tests (nf=20, n_extra=10, nka=nkt=16, the inversion at 100 m) with the
+     small tot stand-in (12 gas species, 25 aqueous stems): the production
+     grid's tot solve would take the CPU ~10 s per column and substep.
 
 The input tables of phases 3-4b and 8-9 are the reference's where $INPDIR
 holds them (clarke.dat; pifm2_171115.dat with the six Mie files;
@@ -66,7 +82,12 @@ the reference's chemistry).  The gas mechanism of phases 5 and 8-9 is the
 reference's when $MECHDIR holds gas.eqn, master_gas.eqn and
 gas_species.csv, else a synthetic stand-in of its shape
 (write_synthetic_gas_mechanism: 95 gas species and 7 binned, 331
-reactions; not the reference's chemistry).
+reactions; not the reference's chemistry).  The tot mechanism of phase 10
+is the reference's when $MECHDIR holds those three files and
+master_aqueous.eqn, tot_eqn12.head and tot_eqn34.head, else a synthetic
+stand-in of its shape (write_synthetic_tot_mechanism: nvar 410, bins of
+80/79/78/78, a gas core of 95, ~1,590 reactions; not the reference's
+chemistry); phase 11 always takes the small stand-in.
 
 The last two lines are a JSON object of per-kernel results and the
 device line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -74,6 +95,7 @@ device line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -182,6 +204,30 @@ PHOT_REPS = 3
 # and ~1e-5 in ff (the aerosol optics), a smooth map: 1e-4
 CHEM_T_DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "sgas": 1e-2,
                      "photol_j": 1e-4}
+# multiphase minute (phases 10-11): the settings of
+# benchmarks/smoke_tot_full.py:51-54; the state in float32 and, by
+# chem_f64's default, the tot solve in float64
+MULTIPHASE = dict(BTZ96, chem=True, nkc_l=4, halo=True, iod=False)
+# 32, not 64: with 64 the whole script took 990.8 s of command time on an
+# H100 80GB HBM3 at 700 W, the multiphase minute being device-bound (84 %
+# busy: 32 columns take about half its time)
+MP_COLUMNS = 32
+MP_MINUTES = 2
+LIQ_PARM_REPS = 3
+# the reference's tot mechanism files, which $MECHDIR may hold
+TOT_FILES = ("gas.eqn", "master_gas.eqn", "gas_species.csv",
+             "master_aqueous.eqn", "tot_eqn12.head", "tot_eqn34.head")
+# phase 11: the tests' tiny grid (its inversion inside the grid) and small
+# tot stand-in (gas species, aqueous stems)
+MP_CMP_GRID = dict(nf=20, n_extra=10, nka=16, nkt=16, nb=8)
+MP_CMP_MECH = (12, 25)
+# card against CPU, multiphase, two columns, float64, two minutes: t, xm1,
+# ff and photol_j as CHEM_T_DEVICE_TOL; conc, relative to each species'
+# largest value, as sgas there: the runs agree to rounding while their
+# Ros3 decisions agree, and part by up to ~rtol = 1e-3 per substep where
+# one flips, 12 substeps: 1e-2
+MP_DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "conc": 1e-2,
+                 "photol_j": 1e-4}
 # photolysis alone, card against CPU on the same inputs, relative to each
 # slot's largest value.  The calculation runs in float64 for every model
 # dtype; libm and summation order differ between the devices by ulps,
@@ -208,6 +254,14 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def timed(label, fn, *args):
+    """fn(*args), logging its host-clock time under label."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -272,56 +326,66 @@ def dwsum_scale(psi, z, e):
     return ((psi.abs() + z.abs()) * e).sum(dim=1).clamp(min=1e-300)
 
 
-def compare_kernels(growth, bott_cuda, rows, dtype, J, seed, plain_reps):
-    """Both kernels against their plain versions on one input of rows x 70
-    bins: checks agreement and advect's mass, times both (CUDA events)
-    and returns each kernel's result fields."""
-    nkt = 70
-    u, z, e = bott_inputs(rows, nkt, dtype, seed)
+def compare_bott(growth, bott_cuda, dt, dw, adv, e, J, plain_reps, what=""):
+    """Both kernels against their plain versions on the card: dwsum on
+    dw = (u, z) and advect on adv = (u, z), rows x nkt each, e [nkt];
+    checks agreement and advect's mass, times both (CUDA events) and
+    returns each kernel's result fields."""
+    u, z = adv
     zmax = z.abs().amax(dim=1, keepdim=True).clamp(min=1e-300)
-
-    psi_k = bott_cuda.bott_advect(DT, u, z, J)
-    psi_p = growth.bott_advect_plain(DT, u, z, J)
+    psi_k = bott_cuda.bott_advect(dt, u, z, J)
+    psi_p = growth.bott_advect_plain(dt, u, z, J)
     rel_a = ((psi_k - psi_p).abs() / zmax).max().item()
     sig = torch.where(z >= growth.YMIN, z, 0.0).sum(dim=1)
     mass = ((psi_k.sum(dim=1) - sig).abs()
             / sig.clamp(min=1e-300)).max().item()
-    dw_k = bott_cuda.bott_dwsum(DT, u, z, e, J)
-    dw_p = growth.bott_dwsum_plain(DT, u, z, e, J)
-    rel_d = ((dw_k - dw_p).abs() / dwsum_scale(psi_p, z, e)).max().item()
-
+    dtype = z.dtype
     tol = KERNEL_TOL[dtype]
-    shape = f"{rows}x{nkt} {str(dtype).replace('torch.', '')} J={J}"
-    bounds = bott_bounds(u, z)
-    out = {
-        "bott_advect": dict(
-            max_abs_err=(psi_k - psi_p).abs().max().item(), rel_err=rel_a,
-            tol=tol, shape=shape,
-            ms=cuda_ms(lambda: bott_cuda.bott_advect(DT, u, z, J), 20),
-            plain_ms=cuda_ms(lambda: growth.bott_advect_plain(DT, u, z, J),
-                             plain_reps),
-            library_ms=None, **bounds["bott_advect"]),
-        "bott_dwsum": dict(
-            max_abs_err=(dw_k - dw_p).abs().max().item(), rel_err=rel_d,
-            tol=tol, shape=shape,
-            ms=cuda_ms(lambda: bott_cuda.bott_dwsum(DT, u, z, e, J), 20),
-            plain_ms=cuda_ms(
-                lambda: growth.bott_dwsum_plain(DT, u, z, e, J),
-                plain_reps),
-            library_ms=None, **bounds["bott_dwsum"]),
-    }
+
+    def shape(z):
+        return (f"{z.shape[0]}x{z.shape[1]} "
+                f"{str(z.dtype).replace('torch.', '')} J={J}")
+
+    out = {"bott_advect": dict(
+        max_abs_err=(psi_k - psi_p).abs().max().item(), rel_err=rel_a,
+        tol=tol, shape=shape(z),
+        ms=cuda_ms(lambda: bott_cuda.bott_advect(dt, u, z, J), 20),
+        plain_ms=cuda_ms(lambda: growth.bott_advect_plain(dt, u, z, J),
+                         plain_reps),
+        library_ms=None, **bott_bounds(u, z)["bott_advect"])}
+
+    u, z = dw
+    if dw is not adv:
+        psi_p = growth.bott_advect_plain(dt, u, z, J)
+    dw_k = bott_cuda.bott_dwsum(dt, u, z, e, J)
+    dw_p = growth.bott_dwsum_plain(dt, u, z, e, J)
+    rel_d = ((dw_k - dw_p).abs() / dwsum_scale(psi_p, z, e)).max().item()
+    out["bott_dwsum"] = dict(
+        max_abs_err=(dw_k - dw_p).abs().max().item(), rel_err=rel_d,
+        tol=tol, shape=shape(z),
+        ms=cuda_ms(lambda: bott_cuda.bott_dwsum(dt, u, z, e, J), 20),
+        plain_ms=cuda_ms(lambda: growth.bott_dwsum_plain(dt, u, z, e, J),
+                         plain_reps),
+        library_ms=None, **bott_bounds(u, z)["bott_dwsum"])
     for r in out.values():
         r["roofline_share"] = r["bound_ms"] / r["ms"]
-    log(f"kernels {shape}: " + "; ".join(
-        f"{k} err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
-        f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
-        f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, "
-        f"{100.0 * r['roofline_share']:.1f} %)"
+    log(f"kernels{what}: " + "; ".join(
+        f"{k} {r['shape']} err {r['max_abs_err']:.3e} (rel "
+        f"{r['rel_err']:.3e}) {r['ms'] * 1e3:.1f} us vs plain "
+        f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us "
+        f"({r['bound_by']}, {100.0 * r['roofline_share']:.1f} %)"
         for k, r in out.items()) + f"; advect mass {mass:.3e}")
-    check(rel_a <= tol, f"advect disagrees: {rel_a} > {tol}")
-    check(rel_d <= tol, f"dwsum disagrees: {rel_d} > {tol}")
-    check(mass <= MASS_TOL[dtype], f"advect mass error {mass}")
+    check(rel_a <= tol, f"advect{what} disagrees: {rel_a} > {tol}")
+    check(rel_d <= tol, f"dwsum{what} disagrees: {rel_d} > {tol}")
+    check(mass <= MASS_TOL[dtype], f"advect{what} mass error {mass}")
     return out
+
+
+def compare_kernels(growth, bott_cuda, rows, dtype, J, seed, plain_reps):
+    """compare_bott on one random input of rows x 70 bins."""
+    u, z, e = bott_inputs(rows, 70, dtype, seed)
+    return compare_bott(growth, bott_cuda, DT, (u, z), (u, z), e, J,
+                        plain_reps)
 
 
 def phase_kernels(growth, bott_cuda):
@@ -425,18 +489,20 @@ def device_time_by_kernel(prof, top: int = 10) -> list:
 def profile_call(fn):
     """fn() under torch.profiler: (its result, wall s, device busy s,
     device events, top kernels by device time); busy is the union of the
-    kernels' intervals."""
+    kernels' intervals.  Only the device's activity is recorded: with the
+    host's operators too, the profiler parsed the multiphase minute's
+    events ~130 s longer."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(spans, "torch.profiler recorded no device event")
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -455,31 +521,44 @@ def log_profile(what, wall, busy, events, top):
             f"{name[:90]}")
 
 
+@contextlib.contextmanager
+def keeping_bott_inputs(growth):
+    """While open, the dict it yields gains the inputs of the first
+    dwsum ("dwsum": dt, u, z, e, band) and advect ("advect": dt, u, z,
+    band) launches of the physics, rows x nkt each."""
+    kept = {}
+    dwsum, advect = growth.bott_dwsum, growth.bott_bin_advection
+
+    def flat(x):
+        return x.reshape(-1, x.shape[-1]).clone()
+
+    def keep_dwsum(dt, u, z, e, band=growth.BAND):
+        if "dwsum" not in kept:
+            kept["dwsum"] = (dt, flat(u), flat(z), e, band)
+        return dwsum(dt, u, z, e, band)
+
+    def keep_advect(dt, u, z, band=growth.BAND):
+        if "advect" not in kept:
+            kept["advect"] = (dt, flat(u), flat(z), band)
+        return advect(dt, u, z, band)
+
+    growth.bott_dwsum, growth.bott_bin_advection = keep_dwsum, keep_advect
+    try:
+        yield kept
+    finally:
+        growth.bott_dwsum, growth.bott_bin_advection = dwsum, advect
+
+
 def main_path_rows(model, state, growth, bott_cuda):
     """One more minute step, keeping the inputs of its first dwsum and
     advect launches: what the main path's rows look like (significant
     bins, walk directions, the deposit's reach) and both kernels' time on
     them, with dwsum on the same rows emptied (no significant bin: loads
     and reduction only) as the floor of its time."""
-    kept = {}
-    dwsum, advect = growth.bott_dwsum, growth.bott_bin_advection
-
-    def keep_dwsum(dt, u, z, e, band=growth.BAND):
-        kept.setdefault("dwsum", (dt, u.clone(), z.clone(), e, band))
-        return dwsum(dt, u, z, e, band)
-
-    def keep_advect(dt, u, z, band=growth.BAND):
-        kept.setdefault("advect", (dt, u.clone(), z.clone(), band))
-        return advect(dt, u, z, band)
-
-    growth.bott_dwsum, growth.bott_bin_advection = keep_dwsum, keep_advect
-    try:
+    with keeping_bott_inputs(growth) as kept:
         model.minute_step(state)
-    finally:
-        growth.bott_dwsum, growth.bott_bin_advection = dwsum, advect
     dt, u, z, e, J = kept["dwsum"]
     nkt = z.shape[-1]
-    u, z = u.reshape(-1, nkt), z.reshape(-1, nkt)
     sig = z >= growth.YMIN
     k_low, k_high, _, _ = growth._bott_split(dt, u, z, J)
     i = torch.arange(nkt, device=z.device)
@@ -1074,7 +1153,8 @@ def phase_chem_t(inpdir, mechdir, bott_cuda, lu_cuda):
         lambda: model.minute_step(state))
     log_profile("one chem=T minute", wall, busy, events, top)
     return counts, iterations, {
-        "columns": B, "minutes": CHEM_T_MINUTES, "minute_ms": times,
+        "columns": B, "minutes": CHEM_T_MINUTES,
+        "minute_ms": [1e3 * t for t in times],
         "steady_minute_ms": ms, "column_minutes_per_s": B / (ms / 1e3),
         "mean_minute_ms": mean_ms,
         "mean_column_minutes_per_s": B / (mean_ms / 1e3), "init_s": init_s,
@@ -1165,6 +1245,278 @@ def phase_chem_t_device_vs_cpu(inpdir, mechdir):
               f"{err:.3e}")
 
 
+def tot_mechanism_dir(tmp: str):
+    """(directory, is_reference) of the multiphase minute's mechanism:
+    $MECHDIR when it holds the reference's gas and tot mechanism files,
+    else tmp with the synthetic tot stand-in of the reference's shape
+    written to it."""
+    from mistra_tpu_torch.chemistry.mech import write_synthetic_tot_mechanism
+    mechdir = os.environ.get("MECHDIR")
+    if mechdir and all(os.path.exists(os.path.join(mechdir, f))
+                       for f in TOT_FILES):
+        log(f"tot mechanism: reference tot mechanism from MECHDIR "
+            f"({mechdir})")
+        return mechdir, True
+    write_synthetic_tot_mechanism(tmp)
+    log("tot mechanism: synthetic stand-in of the reference's shape "
+        f"(MECHDIR lacks {', '.join(TOT_FILES)})")
+    return tmp, False
+
+
+def multiphase_config(inpdir, mechdir, dtype, grid=None, **kw):
+    from mistra_tpu_torch import GridParams, MistraConfig
+    return MistraConfig(grid=grid or GRID or GridParams(), dtype=dtype,
+                        inpdir=inpdir, mechdir=mechdir,
+                        **dict(MULTIPHASE, **kw))
+
+
+def capture_inverse_inputs(drv, state):
+    """{(dtype, m): the input of the first batched inverse of each shape}
+    in one chemistry substep of drv on state: the tot solve's aqueous
+    blocks and gas core, the gas-above solve's bins and gas core."""
+    from mistra_tpu_torch.chemistry import block_solver
+    seen = {}
+    inverse = block_solver.batched_inv
+
+    def keep(a):
+        seen.setdefault((a.dtype, a.shape[-1]), a.clone())
+        return inverse(a)
+
+    block_solver.batched_inv = keep
+    try:
+        drv.integrate_column(state, DT)
+    finally:
+        block_solver.batched_inv = inverse
+    torch.cuda.synchronize()
+    return seen
+
+
+def phase_multiphase(inpdir, mechdir, growth, bott_cuda, lu_cuda):
+    """The multiphase minute on the card: MP_COLUMNS columns, half at
+    00:00 and half at 12:00, float32 (the tot solve in float64),
+    MP_MINUTES minutes with every kernel's launch counter set to 0 just
+    before and read just after; then liq_parm alone, the inverse's inputs
+    on this path, and one more minute under torch.profiler, keeping the
+    inputs of its first Bott launches.  Returns the launch counts, the
+    Ros3 loop iterations of both solves, the path's figures, the
+    inverse's inputs and the Bott kernels' inputs."""
+    from mistra_tpu_torch import Model
+    cfg = multiphase_config(inpdir, mechdir, "float32")
+    model = Model(cfg, device=DEVICE)
+    B = MP_COLUMNS
+    t0 = time.perf_counter()
+    state = midnight_and_noon(model, B)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    drv = model._chemistry
+    check(type(drv).__name__ == "MultiphaseDriver", f"driver {type(drv)}")
+    check(drv.tot_kernel.solver == "block"
+          and drv.tot_kernel.dtype == torch.float64,
+          f"tot solver {drv.tot_kernel.solver} {drv.tot_kernel.dtype}")
+    check(model._photolysis is not None, "no photolysis driver")
+    noon = torch.arange(B, device=state.rad.u0.device) >= B // 2
+
+    tot_steps, gas_steps, failed = [], [], []
+    integrate = drv.integrate_column
+
+    def counted(st, dt):
+        out = integrate(st, dt)
+        tot_steps.append(drv.last_info["nsteps"])
+        failed.append(drv.last_info["failed"])
+        gas_steps.append(drv.last_gas_info["nsteps"])
+        return out
+
+    drv.integrate_column = counted
+    t_start = state.tim.time.clone()
+    times = []
+    try:
+        bott_cuda.reset_counts()
+        lu_cuda.reset_counts()
+        for _ in range(MP_MINUTES):
+            t0 = time.perf_counter()
+            state = model.minute_step(state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
+                  "bott_advect": bott_cuda.bott_advect.launches,
+                  "batched_inv": lu_cuda.batched_inv.launches}
+    finally:
+        drv.integrate_column = integrate
+    tot = torch.stack(tot_steps).cpu().numpy()          # [substeps, cells]
+    gas = torch.stack(gas_steps).cpu().numpy()
+    # (substep, layer) of every cell that ran out of Ros3 steps
+    sub, cell = np.nonzero(torch.stack(failed).cpu().numpy())
+    where_failed = sorted({(int(a), int(c) % (cfg.grid.nf - 1) + 1)
+                           for a, c in zip(sub, cell)})
+    it_tot = int(tot.max(axis=1).sum())
+    it_gas = int(gas.max(axis=1).sum())
+
+    gp = cfg.grid
+    check_state(state, "multiphase minute")
+    check(tuple(state.chem.conc.shape) == (B, drv.tot.nvar, gp.n),
+          f"conc shape {tuple(state.chem.conc.shape)}")
+    advanced = (state.tim.time - t_start).cpu().numpy()
+    check(np.all(advanced == 60.0 * MP_MINUTES), f"clock {advanced}")
+    check(bool((state.tim.lmin == MP_MINUTES).all()), "minute counter")
+    pj = state.chem.photol_j
+    check(bool((pj[noon].amax(dim=(1, 2)) > 0.0).all()),
+          "J-rates all zero in a noon column")
+    check(bool((pj[~noon] == 0.0).all()), "J-rates in a midnight column")
+    check(counts["bott_dwsum"] >= 6 * MP_MINUTES, f"launches {counts}")
+    check(counts["bott_advect"] == 6 * MP_MINUTES, f"launches {counts}")
+    check(counts["batched_inv"] == 2 * (it_tot + it_gas),
+          f"batched_inv launches {counts['batched_inv']} != 2 x "
+          f"({it_tot} + {it_gas}) Ros3 iterations")
+    nonconv = state.chem.nonconv.cpu().numpy()
+    aq = torch.as_tensor(np.nonzero(np.asarray(drv.tot.species_bin))[0],
+                         device=state.chem.conc.device)
+    aq_max = state.chem.conc[:, aq, 1:gp.nf].amax().item()
+    steady = times[1:] if len(times) > 1 else times
+    ms = 1e3 * sum(steady) / len(steady)
+    mean_ms = 1e3 * sum(times) / len(times)
+    blk = drv.tot_kernel.block
+    log(f"multiphase minute: {B} columns (half at 00:00, half at 12:00) x "
+        f"{MP_MINUTES} minutes, float32 state, tot solve float64, grid "
+        f"n={gp.n} nf={gp.nf} nka={gp.nka} nkt={gp.nkt}; tot nvar "
+        f"{drv.tot.nvar}, nrxn {drv.tot.nrxn}, {blk.nbin} bins of ma "
+        f"{blk.ma}, mg {blk.mg}, {tot.shape[1]} cells; gas above nvar "
+        f"{drv.mech.nvar}, {gas.shape[1]} cells; init {init_s:.2f} s; "
+        f"minute step {[round(1e3 * t, 1) for t in times]} ms, steady "
+        f"{ms:.1f} ms = {B / (ms / 1e3):.2f} column-minutes/s (mean of all "
+        f"minutes {mean_ms:.1f} ms = {B / (mean_ms / 1e3):.2f})")
+    log(f"multiphase Ros3: tot {it_tot} loop iterations, steps per cell and "
+        f"substep mean {tot.mean():.2f} max {tot.max()} (first substep "
+        f"{tot[0].mean():.2f}/{tot[0].max()}); gas above {it_gas} loop "
+        f"iterations, steps per cell and substep mean {gas.mean():.2f} max "
+        f"{gas.max()}; nonconv {int(nonconv.sum())} (max per column "
+        f"{int(nonconv.max())}; (substep, layer) of the failed cells "
+        f"{where_failed}); launches {counts}; largest aqueous "
+        f"concentration below nf {aq_max:.3e} mol/m3")
+
+    liq_s = []
+    for _ in range(LIQ_PARM_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv.liq_parm(state)
+        torch.cuda.synchronize()
+        liq_s.append(time.perf_counter() - t0)
+    liq_ms = 1e3 * sum(liq_s) / len(liq_s)
+    log(f"liq_parm: {B} columns, {len(drv.exch)} exchange species; "
+        f"{[round(1e3 * t, 2) for t in liq_s]} ms, mean {liq_ms:.2f} ms "
+        f"(6 calls per minute: {100.0 * 6 * liq_ms / ms:.1f} % of the "
+        f"steady minute)")
+    inputs = capture_inverse_inputs(drv, state)
+
+    with keeping_bott_inputs(growth) as bott_inputs:
+        state, wall, busy, events, top = profile_call(
+            lambda: model.minute_step(state))
+    log_profile("one multiphase minute", wall, busy, events, top)
+    return counts, it_tot + it_gas, {
+        "columns": B, "minutes": MP_MINUTES,
+        "minute_ms": [1e3 * t for t in times],
+        "steady_minute_ms": ms, "column_minutes_per_s": B / (ms / 1e3),
+        "mean_minute_ms": mean_ms,
+        "mean_column_minutes_per_s": B / (mean_ms / 1e3), "init_s": init_s,
+        "tot_nvar": drv.tot.nvar, "tot_nrxn": drv.tot.nrxn,
+        "tot_cells": int(tot.shape[1]), "gas_cells": int(gas.shape[1]),
+        "tot_ros3_iterations": it_tot,
+        "tot_ros3_steps_mean": float(tot.mean()),
+        "tot_ros3_steps_max": int(tot.max()),
+        "gas_ros3_iterations": it_gas,
+        "gas_ros3_steps_mean": float(gas.mean()),
+        "gas_ros3_steps_max": int(gas.max()),
+        "nonconv": int(nonconv.sum()), "failed_substep_layer": where_failed,
+        "liq_parm_ms": liq_ms,
+        "profiled_minute_wall_ms": 1e3 * wall,
+        "profiled_minute_busy_ms": 1e3 * busy,
+        "profiled_minute_events": events,
+        "profiled_minute_top_kernels": [
+            {"kernel": n, "launches": c, "ms": t} for n, c, t in top]}, \
+        inputs, bott_inputs
+
+
+def phase_bott_multiphase(growth, bott_cuda, kept):
+    """Both Bott kernels against their plain versions at the multiphase
+    minute's own rows: the inputs of its first dwsum and advect launches
+    (float32, every column's layers below nf x nka rows of nkt bins)."""
+    dt, u, z, e, J = kept["dwsum"]
+    dt_a, u_a, z_a, J_a = kept["advect"]
+    check(dt_a == dt and J_a == J, f"advect's dt, band {dt_a}, {J_a} "
+          f"differ from dwsum's {dt}, {J}")
+    return compare_bott(growth, bott_cuda, dt, (u, z), (u_a, z_a), e, J,
+                        plain_reps=3, what=" (multiphase rows)")
+
+
+def phase_lu_multiphase(inputs):
+    """The inverse kernel at the multiphase minute's own shapes and
+    dtypes: the path's stage matrices and a batch of each shape that
+    needs pivoting, bit-equal to the plain version; returns the results
+    per (dtype, m, kind)."""
+    from mistra_tpu_torch.chemistry import lu, lu_cuda
+    rng = np.random.default_rng(7)
+    out = {}
+    for (_, m), a in sorted(inputs.items(), key=lambda kv: (
+            str(kv[0][0]), kv[0][1])):
+        out.update(inverse_cases(lu, lu_cuda, a, rng, ("stage", "pivoting"),
+                                 " multiphase"))
+    for (dtype, m, kind), r in out.items():
+        check(r["bit_equal"], f"inverse m={m} {dtype} {kind} (multiphase) "
+              "is not bit-equal to the plain version")
+    return out
+
+
+def phase_multiphase_device_vs_cpu(inpdir):
+    """The multiphase port on the card (kernels) against the port on the
+    CPU (plain versions): a midnight and a noon column, float64,
+    MP_MINUTES minutes, the tiny grid and the small tot stand-in."""
+    from mistra_tpu_torch import GridParams, Model
+    from mistra_tpu_torch.chemistry.mech import write_synthetic_tot_mechanism
+    out, wall = {}, {}
+    with tempfile.TemporaryDirectory(prefix="mistra_tot_small_") as mtmp:
+        write_synthetic_tot_mechanism(mtmp, *MP_CMP_MECH)
+        cfg = multiphase_config(inpdir, mtmp, "float64",
+                                grid=GridParams(**MP_CMP_GRID), zinv=100.0)
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            model = Model(cfg, device=dev)
+            state = midnight_and_noon(model)
+            for _ in range(MP_MINUTES):
+                state = model.minute_step(state)
+            check_state(state, f"multiphase on {dev}")
+            wall[dev] = time.perf_counter() - t0
+            out[dev] = {k: v.cpu().numpy() for k, v in (
+                ("t", state.met.t), ("xm1", state.met.xm1),
+                ("ff", state.micro.ff), ("conc", state.chem.conc),
+                ("photol_j", state.chem.photol_j),
+                ("nonconv", state.chem.nonconv),
+                ("cloud", state.chem.cloud))}
+    ref, got = out["cpu"], out[DEVICE]
+    check(float(ref["photol_j"][1].max()) > 0.0 == float(
+        ref["photol_j"][0].max()), "noon/midnight J-rates")
+    errs = {}
+    for k, tol in MP_DEVICE_TOL.items():
+        if k in ("conc", "photol_j"):
+            errs[k] = rows_err(got[k], ref[k])
+        else:
+            errs[k] = float(np.abs(got[k] - ref[k]).max()
+                            / np.abs(ref[k]).max())
+        check(errs[k] <= tol, f"multiphase {k}: card vs CPU {errs[k]:.3e} > "
+              f"{tol}")
+    check(np.array_equal(got["nonconv"], ref["nonconv"]),
+          f"nonconv card {got['nonconv']} cpu {ref['nonconv']}")
+    cloud_diff = int((got["cloud"] != ref["cloud"]).sum())
+    log(f"multiphase card vs cpu (2 columns at 00:00 and 12:00, float64, "
+        f"{MP_MINUTES} minutes, grid {MP_CMP_GRID}, small tot stand-in "
+        f"{MP_CMP_MECH}; card {wall[DEVICE]:.1f} s, cpu {wall['cpu']:.1f} s) "
+        f"max rel err: "
+        + ", ".join(f"{k} {v:.3e} (tol {MP_DEVICE_TOL[k]})"
+                    for k, v in errs.items())
+        + f"; nonconv card {got['nonconv'].tolist()} cpu "
+        f"{ref['nonconv'].tolist()}; hysteresis flags differing "
+        f"{cloud_diff}")
+    return errs
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
     from nvcc -Xptxas -v output."""
@@ -1195,23 +1547,32 @@ def check_ptxas(text: str) -> None:
     """Logs each kernel's registers and spills; fails if a variant of the
     inverse on a chemistry path spills: float64 m = 80 and 101 (the tot
     solve, phase 6), m = 4 and 95 in float32 and float64 (the chem=T
-    minute and its card-vs-CPU run, phases 8-9)."""
+    minute and its card-vs-CPU run, phases 8-9); phase 10 adds its own
+    (check_spills)."""
     if not text:
         log("ptxas: library loaded from the build cache, no log")
         return
     import re
-    from mistra_tpu_torch.chemistry import lu_cuda
-    rep = ptxas_report(text)
-    for name, r in sorted(rep.items()):
+    for name, r in sorted(ptxas_report(text).items()):
         hit = re.search(r"\d+((?:gj_inverse|bott)\w*)", name)
         short = hit.group(1) if hit else name
         log(f"ptxas: {short[:70]}: "
             f"{r.get('registers')} registers, {r.get('stack')} B stack, "
             f"{r.get('spill_stores')} / {r.get('spill_loads')} B spill "
             f"stores / loads")
-    for m, dtype in ((80, torch.float64), (101, torch.float64),
-                     (4, torch.float32), (95, torch.float32),
-                     (4, torch.float64), (95, torch.float64)):
+    check_spills(text, ((80, torch.float64), (101, torch.float64),
+                        (4, torch.float32), (95, torch.float32),
+                        (4, torch.float64), (95, torch.float64)))
+
+
+def check_spills(text: str, variants) -> None:
+    """Fails unless ptxas compiled the inverse's variant for each (m,
+    dtype) of variants once, without a spill."""
+    if not text:
+        return
+    from mistra_tpu_torch.chemistry import lu_cuda
+    rep = ptxas_report(text)
+    for m, dtype in variants:
         p = lu_cuda.launch_plan(m, dtype)
         t = "d" if dtype == torch.float64 else "f"
         key = f"gj_inverse_kernelI{t}Li{p.tx}ELi{p.ry}ELi{p.rx}E"
@@ -1219,6 +1580,8 @@ def check_ptxas(text: str) -> None:
         check(len(hits) == 1, f"ptxas: no single entry for {key}")
         check(hits[0].get("spill_stores") == 0 == hits[0].get("spill_loads"),
               f"ptxas: {key} spills: {hits[0]}")
+        log(f"ptxas: m={m} {str(dtype).replace('torch.', '')} ({key}) "
+            f"compiled once, no spill")
 
 
 def main() -> int:
@@ -1248,24 +1611,38 @@ def main() -> int:
     check_ptxas(build.ptxas_log)
 
     from mistra_tpu_torch.chemistry import lu_cuda
-    kernels = phase_kernels(growth, bott_cuda)
+    kernels = timed("phase 2", phase_kernels, growth, bott_cuda)
     with tempfile.TemporaryDirectory(prefix="mistra_inp_") as tmp, \
             tempfile.TemporaryDirectory(prefix="mistra_gas_") as gas_tmp:
         inpdir = input_dir(tmp)
         gasdir, _ = gas_mechanism_dir(gas_tmp)
-        counts, main = phase_main(inpdir, bott_cuda)
-        phase_device_vs_cpu(inpdir)
-        phase_radiation(inpdir)
+        counts, main = timed("phase 3", phase_main, inpdir, bott_cuda)
+        timed("phase 4", phase_device_vs_cpu, inpdir)
+        timed("phase 4b", phase_radiation, inpdir)
         with tempfile.TemporaryDirectory(prefix="mistra_mech_") as mtmp:
             mech, reference = chem_mechanism(mtmp)
-        lu_results = phase_lu(mech, reference)
-        lu_chem_t = phase_lu_chem_t(gasdir)
+        lu_results = timed("phase 5", phase_lu, mech, reference)
+        lu_chem_t = timed("phase 5 (chem=T shapes)", phase_lu_chem_t,
+                          gasdir)
         counts["batched_inv"], ros3_iterations, main["chemistry"] = \
-            phase_chem(mech, reference)
-        phase_chem_device_vs_cpu(mech, reference)
+            timed("phase 6", phase_chem, mech, reference)
+        timed("phase 7", phase_chem_device_vs_cpu, mech, reference)
         chem_t_counts, chem_t_iterations, main["chem_t_minute"] = \
-            phase_chem_t(inpdir, gasdir, bott_cuda, lu_cuda)
-        phase_chem_t_device_vs_cpu(inpdir, gasdir)
+            timed("phase 8", phase_chem_t, inpdir, gasdir, bott_cuda,
+                  lu_cuda)
+        timed("phase 9", phase_chem_t_device_vs_cpu, inpdir, gasdir)
+        with tempfile.TemporaryDirectory(prefix="mistra_tot_") as ttmp:
+            totdir, _ = tot_mechanism_dir(ttmp)
+            mp_counts, mp_iterations, main["multiphase_minute"], mp_in, \
+                mp_bott_in = timed("phase 10", phase_multiphase, inpdir,
+                                   totdir, growth, bott_cuda, lu_cuda)
+        check_spills(build.ptxas_log, [(m, dtype) for dtype, m in mp_in])
+        lu_mp = timed("phase 10 (the inverse)", phase_lu_multiphase, mp_in)
+        bott_mp = timed("phase 10 (Bott)", phase_bott_multiphase, growth,
+                        bott_cuda, mp_bott_in)
+        del mp_in, mp_bott_in
+        main["multiphase_minute"]["card_vs_cpu"] = timed(
+            "phase 11", phase_multiphase_device_vs_cpu, inpdir)
 
     rows = []
     for name, line in (("bott_dwsum", 204), ("bott_advect", 173)):
@@ -1277,8 +1654,12 @@ def main() -> int:
                      "launches_chem_t": chem_t_counts[name],
                      "launches_per_chem_t_minute":
                          chem_t_counts[name] / CHEM_T_MINUTES,
+                     "launches_multiphase": mp_counts[name],
+                     "launches_per_multiphase_minute":
+                         mp_counts[name] / MP_MINUTES,
                      "main_path_rows_ms": main["main_path_rows"][
                          name.replace("bott_", "") + "_ms"],
+                     "multiphase_rows": bott_mp[name],
                      **kernels[name]})
     # the main path's calls: float64 stage matrices, the aqueous blocks
     # and the Schur complement (one of each per Ros3 step attempt)
@@ -1286,6 +1667,10 @@ def main() -> int:
                   if dt == torch.float64 and kind == "stage"]
     inv = {k: sum(r[k] for r in main_calls)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    shape_keys = ("shape", "rel_err", "bit_equal", "residual",
+                  "linalg_residual", "ms", "plain_ms", "library_ms",
+                  "bound_ms", "bound_by", "roofline_share", "plan",
+                  "blocks_per_sm")
     rows.append({
         "name": "batched_inv", "route": "cuda",
         "source": "mistra_tpu_torch/csrc/lu.cu",
@@ -1304,21 +1689,28 @@ def main() -> int:
             **{k: sum(r[k] for (dt, _, kind), r in lu_chem_t.items()
                       if dt == torch.float32 and kind == "stage")
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            "shapes": [{k: r[k] for k in (
-                "shape", "rel_err", "bit_equal", "residual",
-                "linalg_residual", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "roofline_share", "plan",
-                "blocks_per_sm")} for r in lu_chem_t.values()]},
+            "shapes": [{k: r[k] for k in shape_keys}
+                       for r in lu_chem_t.values()]},
+        "launches_multiphase": mp_counts["batched_inv"],
+        "launches_per_multiphase_minute":
+            mp_counts["batched_inv"] / MP_MINUTES,
+        "multiphase_minute": {
+            "launches_per_ros3_iteration":
+                mp_counts["batched_inv"] / mp_iterations,
+            # the path's own calls, one of each per Ros3 iteration of its
+            # solve: the tot solve's float64 aqueous blocks and gas core,
+            # the gas-above solve's float32 bins and gas core
+            **{k: sum(r[k] for (_, _, kind), r in lu_mp.items()
+                      if kind == "stage")
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "shapes": [{k: r[k] for k in shape_keys}
+                       for r in lu_mp.values()]},
         "max_abs_err": max(r["max_abs_err"] for r in main_calls),
         **inv,
         "bound_by": "+".join(sorted({r["bound_by"] for r in main_calls})),
         "roofline_share": inv["bound_ms"] / inv["ms"],
         "shape": " + ".join(r["shape"] for r in main_calls),
-        "all": [{k: r[k] for k in ("shape", "rel_err", "bit_equal",
-                                   "residual", "linalg_residual", "ms",
-                                   "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by", "roofline_share", "plan",
-                                   "blocks_per_sm")}
+        "all": [{k: r[k] for k in shape_keys}
                 for r in lu_results.values()]})
     log(json.dumps({"main_path": main}))
     log(json.dumps({"kernels": rows}))

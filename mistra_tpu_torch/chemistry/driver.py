@@ -33,7 +33,7 @@ from .rates import RateEnv
 
 __all__ = ["HENRY_TABLE", "INFINITE_SOLUBILITY", "F0_BY_INDEX",
            "U0MIN_DEFAULT", "U0MIN_BUYS", "NPHRXN", "GasChemState",
-           "henry_molar", "ChemistryDriver"]
+           "henry_molar", "surface_exchange", "ChemistryDriver"]
 
 NPHRXN = 47
 
@@ -127,11 +127,33 @@ def _solubility_factor(name, t2):
     return torch.ones_like(t2)
 
 
+def surface_exchange(conc, vg, es, dt, deta1, detw1):
+    """sedc on concentrations conc [B, nvar, n]: dry deposition at the
+    velocities vg [B, nvar] out of level 1 into the surface reservoir
+    (level 0, column-integral units), then the emission es [nvar]
+    [molec/cm2/s] into level 1.  Returns a new conc."""
+    conc = conc.clone()
+    dep_fac = torch.where(vg >= 1.0e-5, torch.exp(-dt / deta1 * vg), 1.0)
+    s_old = conc[:, :, 1]
+    s_new = s_old * dep_fac
+    conc[:, :, 0] = conc[:, :, 0] + (s_old - s_new) * deta1
+    # emissions [molec/cm2/s] -> mol/m3 per step
+    conc[:, :, 1] = s_new + es * dt * 1.0e4 / (detw1 * AVOGADRO)
+    return conc
+
+
 class ChemistryDriver:
     """Gas-phase chemistry of a Model: reads ``gas.eqn`` (or
     ``master_gas.eqn``), ``cfg.cgaslistfile`` and, with neula=0,
     ``euler_in.dat`` from ``cfg.mechdir``, and builds its ``GasKernel``
-    on the model's device in the model's dtype."""
+    on the model's device in the model's dtype.
+
+    The concentrations are the chemistry state's ``conc_name`` field,
+    indexed by ``conc_n2i``; the couplers to the particles (``konc``,
+    ``sea_salt_source``, ``sedl``, ``aerosol_mass_feedback``) leave the
+    state as it is here and act in the multiphase driver."""
+
+    conc_name = "sgas"
 
     def __init__(self, model):
         from . import aqueous as aq
@@ -146,6 +168,7 @@ class ChemistryDriver:
         self.csv = load_species_csv(f"{cfg.mechdir.rstrip('/')}/"
                                     f"{cfg.cgaslistfile}")
         self.name2i = {s: i for i, s in enumerate(self.mech.species)}
+        self.conc_n2i = self.name2i
         # static chemistry-bin membership of the 2-D spectrum, for the
         # het-on-dry-aerosol rates (dry_cw_rc, kpp.f90:4580-4642)
         self.masks = aq.bin_masks(model.grids.micro)
@@ -216,14 +239,14 @@ class ChemistryDriver:
         (kpp_driver, kpp.f90:4441-4448): xadv in mol/mol/day; kinv [B]."""
         if not self.advect:
             return chem
-        conc = chem.sgas.clone()
+        conc = getattr(chem, self.conc_name).clone()
         lev = torch.arange(conc.shape[-1], device=conc.device)
         below = (lev >= 1) & (lev <= kinv[:, None])                # [B, n]
         for name, xadv in self.advect:
             add = torch.where(below, xadv * dt * am3 / 86400.0, 0.0)
-            i = self.name2i[name]
+            i = self.conc_n2i[name]
             conc[:, i] = conc[:, i] + add.to(conc.dtype)
-        return chem.replace(sgas=conc)
+        return chem.replace(**{self.conc_name: conc})
 
     # ------------------------------------------------------------------
     def init_chem_state(self, state) -> GasChemState:
@@ -320,15 +343,21 @@ class ChemistryDriver:
     # ------------------------------------------------------------------
     def sedc(self, chem: GasChemState, dt, deta1, detw1) -> GasChemState:
         """Surface dry deposition + ground emission (str.f90:2520-2535)."""
-        sgas = chem.sgas.clone()
-        dep_fac = torch.where(chem.vg >= 1.0e-5,
-                              torch.exp(-dt / deta1 * chem.vg), 1.0)
-        s_old = sgas[:, :, 1]
-        s_new = s_old * dep_fac
-        sgas[:, :, 0] = sgas[:, :, 0] + (s_old - s_new) * deta1
-        # emissions [molec/cm2/s] -> mol/m3 per step
-        sgas[:, :, 1] = s_new + self._es * dt * 1.0e4 / (detw1 * AVOGADRO)
-        return chem.replace(sgas=sgas)
+        return chem.replace(sgas=surface_exchange(
+            chem.sgas, chem.vg, self._es, dt, deta1, detw1))
+
+    # the couplers to the particles: none without aqueous bins
+    def konc(self, chem, ff_before, ff_after):
+        return chem
+
+    def sea_salt_source(self, state, dt):
+        return state
+
+    def sedl(self, state, dt):
+        return state.chem
+
+    def aerosol_mass_feedback(self, state, conc_before):
+        return state
 
     # ------------------------------------------------------------------
     def _het_extras(self, state, lev, y0):

@@ -571,3 +571,144 @@ def write_synthetic_gas_mechanism(mechdir, n_gas: int = 95, seed: int = 0):
         with open(path, "w") as f:
             f.write(text)
     return paths
+
+
+# aqueous stems the multiphase drivers look up by name: the Pitzer ions
+# (activity.ION_SPECIES), the loaded ions (sources.ION_NAMES, DOM), the
+# mass-feedback ion CH3SO3- and the bisulfite of the SO2 equilibrium
+_TOT_IONS = ("Hp", "NH4p", "HSO4m", "SO42m", "NO3m", "Clm", "HCO3m", "Brm",
+             "Im", "IO3m", "DOM", "CH3SO3m", "HSO3m")
+# acid-base equilibria of the stand-in: (acid stem, anion stem), each
+# present when both stems are; ykef/ykeb look the acid up in
+# aqueous.EQUILIBRIA (HSO4ml1's key carries the bin suffix)
+_TOT_EQUILIBRIA = (("HNO3", "NO3m"), ("HCl", "Clm"), ("SO2", "HSO3m"),
+                   ("H2SO4", "HSO4m"), ("HSO4m", "SO42m"), ("HBr", "Brm"))
+# constant factor on the equilibrium hooks (forward and backward alike, so
+# the equilibrium stays the table's): the table's relaxation rates
+# (ykef ~1.5e10 1/s, ykeb ~1e9 cvv) leave a Ros3 solve at rtol 1e-3
+# unconverged; scaled, the fastest equilibrium relaxes at ~1e2 1/s
+_EQ_SCALE = 1.0e-8
+# aqueous reactions per bin at 80 stems: the reference tot mechanism has
+# 1627 reactions at its shape, 323 of them gas-phase and the heads' 14 here
+_TOT_AQ_RXN = 322
+_TOT_NAQ = 80
+
+
+def write_synthetic_tot_mechanism(mechdir, n_gas: int = 95, n_aq: int = 78,
+                                  seed: int = 0):
+    """Write a stand-in of the reference's tot (multiphase) mechanism into
+    ``mechdir``: ``write_synthetic_gas_mechanism``'s four files, plus
+    ``tot_eqn12.head``, ``tot_eqn34.head`` and ``master_aqueous.eqn`` in
+    the reference's formats; returns the seven paths.
+
+    NOT the reference's chemistry: the gas phase is the gas stand-in's,
+    the aqueous reactions and rate constants are drawn from ``seed``.
+    What it shares with the reference is its shape and the names and
+    hooks the multiphase drivers use.  ``load_multiphase_mechanism(mechdir,
+    bins=(1, 2, 3, 4))`` gives n_gas gas species, 4 bins of n_aq aqueous
+    species (bins 1 and 2 also hold the het products SO4l1, DUMM1 and
+    SO4l2) and about 17 reactions per aqueous species: at the defaults
+    nvar 410 (a gas core of mg = 95, bins of 80, 79, 78, 78: the largest,
+    which sets the batched inverse's tile, is the reference's ~80) and
+    ~1,590 reactions.  No reaction couples two aqueous bins.
+
+    The aqueous stems (``Xlz``, cloned to bins 1-4) are the ions the
+    drivers read (Hp, NH4p, HSO4m, SO42m, NO3m, Clm for the Pitzer
+    activities; HCO3m, Brm, Im, IO3m, DOM for the ion loading; CH3SO3m;
+    HSO3m), the dissolved form of every gas species in
+    ``aqueous.EXCHANGE_SPECIES`` (HNO3lz among them), then ``A000lz``..
+    up to n_aq.  Every aqueous rate carries ``xliqz``; together the files
+    call every hook of the driver's rate namespace: gas <-> aqueous
+    transfer pairs ``xliqz*yxkmt(ind_X,z)*ycw(z)`` and
+    ``xliqz*yxkmt(ind_X,z)*yhenry(ind_X)``; acid-base equilibria
+    ``ykef``/``ykeb`` (scaled by _EQ_SCALE); aqueous bimolecular
+    reactions ``k*cvvz``; one rate on a gas concentration ``c(ind_O3)``;
+    in ``tot_eqn12.head`` gas.eqn's 8 het reactions (``xhet1``,
+    ``xhet2`` with ``fdhetg``, ``fdheta``, ``fdhett``) and N2O5 uptake by
+    ``fhet_da``, ``fhet_dt`` and ``fhet_t``; in ``tot_eqn34.head`` N2O5
+    uptake into the droplet bins 3 and 4.  n_gas must be at least 12 (the
+    gas species through SO2 and DMS) and n_aq at least the count of
+    stems the drivers need.
+    """
+    from .aqueous import EXCHANGE_SPECIES
+    if n_gas < 12:
+        raise ValueError(f"n_gas must be at least 12, got {n_gas}")
+    paths = write_synthetic_gas_mechanism(mechdir, n_gas, seed)
+    gas = [s[0] for s in _NAMED_GAS[:n_gas]]
+    dissolved = [s for s in EXCHANGE_SPECIES if s in gas]
+    stems = list(_TOT_IONS) + dissolved
+    if n_aq < len(stems):
+        raise ValueError(f"n_aq must be at least {len(stems)}, got {n_aq}")
+    stems += [f"A{i:03d}" for i in range(n_aq - len(stems))]
+    rng = np.random.default_rng(seed + 1)
+
+    def pick(avoid=()):
+        while True:
+            s = stems[int(rng.integers(len(stems)))]
+            if s not in avoid:
+                return s
+
+    lines = ["#EQUATIONS", "{--- synthetic stand-in, not the reference "
+             "mechanism; one bin (z) ---}"]
+    for s in dissolved:
+        # gas <-> aqueous transfer pair (mech/master_aqueous.eqn's form)
+        lines.append(f"{{T{s}i}} {s} = {s}lz : "
+                     f"xliqz*yxkmt(ind_{s},z)*ycw(z) ;")
+        lines.append(f"{{T{s}o}} {s}lz = {s} : "
+                     f"xliqz*yxkmt(ind_{s},z)*yhenry(ind_{s}) ;")
+    eq = f"{_EQ_SCALE:.1e}".replace("e", "d")
+    for acid, anion in _TOT_EQUILIBRIA:
+        if acid not in stems or anion not in stems:
+            continue
+        lines.append(f"{{E{acid}f}} {acid}lz = {anion}lz + Hplz : "
+                     f"{eq}*xliqz*ykef(ind_{acid}lz,z) ;")
+        lines.append(f"{{E{acid}b}} {anion}lz + Hplz = {acid}lz : "
+                     f"{eq}*xliqz*ykeb(ind_{acid}lz,z) ;")
+    # S(IV) oxidation by the gas-phase ozone of the cell
+    lines.append("{SIVO3} HSO3mlz = SO42mlz + Hplz : "
+                 "1.0d5*xliqz*c(ind_O3) ;")
+    n_rxn = round(_TOT_AQ_RXN * n_aq / _TOT_NAQ)
+    for r in range(n_rxn - (len(lines) - 2)):
+        a = pick()
+        kind = r % 4
+        if kind == 0:
+            # bimolecular, two stems to one: k [1/(M s)] times cvv
+            b = pick((a,))
+            rate = f"{_log_uniform(rng, -2.0, 2.0):.6e}*xliqz*cvvz"
+            lines.append(f"{{R{r}}} {a}lz + {b}lz = {pick((a, b))}lz : "
+                         f"{rate} ;")
+        elif r % 8 == 3:
+            # with the bin's water: 55.55 M x k
+            lines.append(f"{{R{r}}} {a}lz + H2Olz = {pick((a,))}lz : "
+                         f"{_log_uniform(rng, -5.0, -2.0):.6e}*xliqz*cvvz ;")
+        else:
+            lines.append(f"{{R{r}}} {a}lz = {pick((a,))}lz : "
+                         f"{_log_uniform(rng, -3.0, 1.0):.6e}*xliqz ;")
+    aq_text = "\n".join(lines) + "\n"
+
+    head12 = ["#INCLUDE tot.spc", "#EQUATIONS",
+              "{--- het reactions on dry aerosol and aerosol bins 1-2 "
+              "(stand-in) ---}"]
+    het_fn = ("fdhetg", "fdheta", "fdhett")
+    for k, (reac, prods, b, slot) in enumerate(_HET_REACTIONS):
+        head12.append(f"{{HET{k + 1}}} {reac} = {prods} : "
+                      f"xhet{b}*{het_fn[k % 3]}({b},{slot}) ;")
+    head12 += [
+        "{HTA1} N2O5 = 2 HNO3l1 : fhet_da(xliq1,xhet1,1,1,1) ;",
+        "{HTA2} N2O5 + Clml1 = NO2 + NO3ml1 : fhet_da(xliq1,xhet1,1,2,1) ;",
+        "{HTD1} N2O5 = 2 HNO3l2 : fhet_dt(xliq2,xhet2,2,1,1) ;",
+        "{HTT1} N2O5 + Brml2 = NO2 + NO3ml2 : fhet_t(2,3,1) ;"]
+    head34 = ["#INCLUDE tot.spc", "#EQUATIONS",
+              "{--- N2O5 uptake into the droplet bins (stand-in) ---}"]
+    for b in (3, 4):
+        head34.append(f"{{HTL{b}}} N2O5 = 2 HNO3l{b} : "
+                      f"xliq{b}*yxkmt(ind_N2O5,{b})*ycw({b}) ;")
+
+    mechdir = str(mechdir).rstrip("/")
+    more = (f"{mechdir}/tot_eqn12.head", f"{mechdir}/tot_eqn34.head",
+            f"{mechdir}/master_aqueous.eqn")
+    for path, text in zip(more, ("\n".join(head12) + "\n",
+                                 "\n".join(head34) + "\n", aq_text)):
+        with open(path, "w") as f:
+            f.write(text)
+    return paths + more

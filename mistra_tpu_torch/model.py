@@ -1,12 +1,13 @@
 """Model assembly: the operator-splitting timestep schedule, in torch.
 
 Counterpart of ``mistra_tpu.model`` for the column step with mic=T and a
-water surface, with chemistry off (the BTZ96 configuration) or with the
-gas-phase chemistry on (chem=T, nkc_l=0).  The reference's two-level time
-loop (outer 1-minute steps, inner 6 x 10-s substeps; str.f90:324-535):
-``substep`` applies the fast physics in the reference's fixed order and
-``minute_step`` wraps six substeps between the once-per-minute clock,
-deposition, solar-geometry, radiation and photolysis updates.
+water surface, with chemistry off (the BTZ96 configuration) or on, with
+the gas-phase driver (nkc_l=0) or the multiphase one (nkc_l>0).  The
+reference's two-level time loop (outer 1-minute steps, inner 6 x 10-s
+substeps; str.f90:324-535): ``substep`` applies the fast physics in the
+reference's fixed order and ``minute_step`` wraps six substeps between
+the once-per-minute clock, deposition, solar-geometry, radiation and
+photolysis updates.
 
 There is no jit: every step is eager Python over tensors of B columns on
 the model's device.  Initialisation runs on the host (numpy and torch on
@@ -20,15 +21,19 @@ the Mie files from ``cfg.inpdir`` (and raises without them), and
 ``model.radiation_enabled = False`` before ``init_state`` to run without
 it.
 
-With chem=True (and nkc_l=0, the JAX package's gas-phase path) the model
-runs ``chemistry.driver.ChemistryDriver`` on ``cfg.mechdir``'s mechanism
-and, with radiation on, ``photolysis.jrates.PhotolysisDriver`` on
-``cfg.inpdir``'s ``photolys/`` tables: ``difc`` after ``difm``; dry
-deposition, surface exchange, the optional Eulerian source (neula=0) and
-the stiff Ros3 solve of every interior layer after the surface; the
-J-rates at init and on even minutes when the sun is up.  Configurations
-outside the slice (the multiphase driver, chem=T with nkc_l>0;
-nucleation; mic=F, isurf=1, box and chamber modes) raise.
+With chem=True the model runs, as the JAX package does, the gas-phase
+``chemistry.driver.ChemistryDriver`` (nkc_l=0) or the multiphase
+``chemistry.driver_aq.MultiphaseDriver`` (nkc_l>0: the tot mechanism
+below nf with the aqueous stack, the gas mechanism above) on
+``cfg.mechdir``'s mechanism and, with radiation on,
+``photolysis.jrates.PhotolysisDriver`` on ``cfg.inpdir``'s ``photolys/``
+tables: ``difc`` after ``difm``; with the multiphase driver ``konc``
+after kon, the sea-salt source (iaertyp=3) after the surface and ``sedl``
+after ``sedc``; dry deposition, surface exchange, the optional Eulerian
+source (neula=0) and the stiff Ros3 solve after the surface, then (with
+the multiphase driver) the aerosol mass feedback; the J-rates at init
+and on even minutes when the sun is up.  Configurations outside the port
+(nucleation; mic=F, isurf=1, box and chamber modes) raise.
 """
 
 from __future__ import annotations
@@ -87,8 +92,8 @@ class Model:
 
     Args:
       cfg: the run configuration (mic=True, isurf=0, neither box nor
-        chamber mode; chem=False, or chem=True with nkc_l=0 and no
-        nucleation).
+        chamber mode, no nucleation; chem=False or chem=True, with the
+        gas-phase driver at nkc_l=0 and the multiphase one at nkc_l>0).
       device: where the state and every step run: the card by default
         (raises on a host without one); "cpu" runs the plain versions.
       band: Bott walk band J (walks longer than J bins per substep are
@@ -99,9 +104,7 @@ class Model:
     def __init__(self, cfg: MistraConfig, device="cuda",
                  band: int = growth.BAND,
                  newton_iters: int = growth.NEWTON_ITERS):
-        unported = {"chem=True with nkc_l>0 (the multiphase driver)":
-                     cfg.chem and cfg.nkc_l > 0,
-                     "nuc=True": cfg.nuc, "mic=False": not cfg.mic,
+        unported = {"nuc=True": cfg.nuc, "mic=False": not cfg.mic,
                      "isurf=1": cfg.isurf != 0, "box": cfg.box,
                      "chamber": cfg.chamber}
         for name, on in unported.items():
@@ -156,8 +159,12 @@ class Model:
             from .radiation.driver import RadiationDriver
             self._radiation = RadiationDriver(self)
         if cfg.chem and self._chemistry is None:
-            from .chemistry.driver import ChemistryDriver
-            self._chemistry = ChemistryDriver(self)
+            if cfg.nkc_l > 0:
+                from .chemistry.driver_aq import MultiphaseDriver
+                self._chemistry = MultiphaseDriver(self)
+            else:
+                from .chemistry.driver import ChemistryDriver
+                self._chemistry = ChemistryDriver(self)
         if (cfg.chem and self._photolysis is None
                 and self._radiation is not None):
             from .photolysis.jrates import PhotolysisDriver
@@ -213,19 +220,28 @@ class Model:
         state = state.replace(met=met, turb=turb,
                               tim=state.tim.replace(kinv=kinv))
 
+        chemistry = self._chemistry
         # turbulent exchange of chemical species
-        if self._chemistry is not None:
-            out = diffusion.difc({"c": state.chem.sgas.transpose(1, 2)},
-                                 state.met, state.turb, self.atm, dd)
+        if chemistry is not None:
+            field = chemistry.conc_name
+            out = diffusion.difc(
+                {"c": getattr(state.chem, field).transpose(1, 2)},
+                state.met, state.turb, self.atm, dd)
             state = state.replace(chem=state.chem.replace(
-                sgas=out["c"].transpose(1, 2)))
+                **{field: out["c"].transpose(1, 2)}))
 
         # particle diffusion, condensational growth, settling, then the
         # levels above nf back onto the Koehler curve
         micro = diffusion.difp(state.micro, state.met, state.turb, self.atm,
                                dd)
         state = state.replace(micro=micro)
+        ff_before_kon = state.micro.ff
         state = growth.kon(self, state, dd)
+        # shift aqueous species between chemistry bins along with the
+        # particles that crossed the aerosol/droplet threshold (konc)
+        if chemistry is not None:
+            state = state.replace(chem=chemistry.konc(
+                state.chem, ff_before_kon, state.micro.ff))
         state = sedimentation.sedp(self, state, dd)
         met, micro = microphysics.equil(
             state.met, state.micro, self.micro, a0m, self.b0m, ncase=2,
@@ -245,18 +261,25 @@ class Model:
             rhsurf=cfg.rhsurf, ltwcst=cfg.ltwcst, ntwopt=cfg.ntwopt)
         state = state.replace(met=met, surf=surf_state)
 
-        # gas-phase chemistry: surface exchange then stiff integration
-        if self._chemistry is not None:
-            chemistry = self._chemistry
+        # chemistry: surface exchange then stiff integration
+        if chemistry is not None:
+            # sea-salt aerosol + ion source (aer_source, kpp.f90:3810-4063)
+            state = chemistry.sea_salt_source(state, dd)
             chem = state.chem.replace(vg=chemistry.gasdrydep(state))
             chem = chemistry.sedc(chem, dd, self.atm.deta[1],
                                   self.atm.detw[1])
             state = state.replace(chem=chem)
+            # wet deposition of dissolved species (sedl)
+            state = state.replace(chem=chemistry.sedl(state, dd))
             # eulerian advective source below the inversion (neula=0)
             if cfg.neula == 0:
                 state = state.replace(chem=chemistry.eulerian_advection(
                     state.chem, state.tim.kinv, chemistry.am3, dd))
+            conc_before = getattr(state.chem, chemistry.conc_name)
             state = state.replace(chem=chemistry.integrate_column(state, dd))
+            # aerosol-mass feedback to the particle grid (stem_kpp,
+            # str.f90:5975-6134)
+            state = chemistry.aerosol_mass_feedback(state, conc_before)
 
         tim = state.tim.replace(time=state.tim.time + dd)
         return state.replace(tim=tim)

@@ -5,8 +5,9 @@ shapes and adds the ensemble axis with ``jax.vmap``; here the column axis
 ``B`` is written out as the first dimension of every field, and the
 per-column layouts behind it are those of the JAX package (``ff`` is
 ``[B, nkt, nka, n]``, ``totrad`` is ``[B, mb, n]``, scalars are ``[B]``,
-clock and layer indices are int32 ``[B]``).  ``chem`` is the gas-phase
-chemistry state (``GasChemState``) with chem=True and None otherwise.
+clock and layer indices are int32 ``[B]``).  ``chem`` is the chemistry
+state with chem=True and None otherwise: ``GasChemState`` for the
+gas-phase driver, ``MultiphaseChemState`` for the multiphase one.
 
 Updates are out of place: every physics function returns new dataclasses
 built with ``replace``, as the JAX functions do.
@@ -148,6 +149,24 @@ class GasChemState(_Fields):
 
 
 @dataclass
+class MultiphaseChemState(_Fields):
+    """Multiphase chemistry state (``chemistry.driver_aq``): every species
+    of the tot mechanism, gas and aqueous bins alike."""
+    conc: torch.Tensor      # [B, nvar_tot, n] all species [mol/m3]
+    vg: torch.Tensor        # [B, nvar_tot] dry deposition velocities
+    photol_j: torch.Tensor  # [B, nphrxn, n] photolysis rates [1/s]
+    cloud: torch.Tensor     # [B, 4, n] bool deliquescence hysteresis flags
+    # cumulative count of (cell, substep) stiff-solver non-convergences
+    # per column
+    nonconv: torch.Tensor   # [B] int32
+
+    @property
+    def sgas(self):
+        # the gas state's name of the concentrations (difc, diagnostics)
+        return self.conc
+
+
+@dataclass
 class ModelState(_Fields):
     met: MetState
     turb: TurbState
@@ -155,8 +174,8 @@ class ModelState(_Fields):
     micro: MicroState
     rad: RadState
     tim: TimeState
-    # the gas-phase chemistry state when chem=True, else None
-    chem: GasChemState | None = None
+    # the chemistry state when chem=True, else None
+    chem: GasChemState | MultiphaseChemState | None = None
 
 
 _SUBSTATES = {"met": MetState, "turb": TurbState, "surf": SurfaceState,
@@ -210,19 +229,23 @@ def state_from_numpy(tree, B: int) -> ModelState:
     ``tree`` is any object with the attributes of the per-column JAX
     ``ModelState`` (``tree.met.t`` and so on), for example
     ``jax.tree.map(np.asarray, state)``; its ``chem``, where present and
-    not None, is the JAX ``GasChemState``.  Integer fields become int32;
-    floating fields keep their dtype.  Move the result with ``.to(device)``.
+    not None, is the JAX ``GasChemState`` or, with a ``conc`` field,
+    ``MultiphaseChemState``.  Boolean fields stay bool, other integer
+    fields become int32; floating fields keep their dtype.  Move the
+    result with ``.to(device)``.
     """
     subs = {}
     for sub, cls in _SUBSTATES.items():
         src = getattr(tree, sub, None)
         if src is None:
             continue
+        if sub == "chem" and hasattr(src, "conc"):
+            cls = MultiphaseChemState
         vals = {}
         for f in dataclasses.fields(cls):
             a = np.asarray(getattr(src, f.name))
             x = torch.from_numpy(np.array(a))
-            if not x.is_floating_point():
+            if not x.is_floating_point() and x.dtype != torch.bool:
                 x = x.to(torch.int32)
             vals[f.name] = x.unsqueeze(0).expand(
                 (B,) + tuple(x.shape)).clone()

@@ -4,8 +4,9 @@ PyTorch port (tests/test_torch_*.py).
 Both packages are built on the same tiny grid from the same synthetic
 ``clarke.dat`` (the reference's input tables are not in the repository),
 with radiation off, or on with the synthetic PIFM2 and Mie tables, and
-with chemistry off, or on (chem=T, nkc_l=0) with the synthetic photolysis
-tables and a small synthetic gas mechanism; the JAX state and the
+with chemistry off, or on with the synthetic photolysis tables and a
+small synthetic gas mechanism (chem=T, nkc_l=0) or tot mechanism (chem=T,
+nkc_l=4, the multiphase driver); the JAX state and the
 constants its init returns are carried across to the port with
 ``state_from_numpy``.  Inputs beyond the initial state are made with numpy
 from a fixed seed.
@@ -22,12 +23,19 @@ import mistra_tpu_torch as pt
 from mistra_tpu.config import GridParams, MistraConfig
 from mistra_tpu.model import Model as JaxModel
 from mistra_tpu.radiation.driver import RadiationDriver as JaxRadiation
-from mistra_tpu_torch.chemistry.mech import write_synthetic_gas_mechanism
+from mistra_tpu_torch.chemistry.mech import (write_synthetic_gas_mechanism,
+                                             write_synthetic_tot_mechanism)
 from mistra_tpu_torch.photolysis.tables import \
     write_synthetic_photolysis_tables
 from mistra_tpu_torch.physics.surface import write_synthetic_clarke_table
 from mistra_tpu_torch.radiation.tables import \
     write_synthetic_radiation_tables
+
+# the suite runs in several worker processes at once, and each would start
+# one torch thread per core: the cores are oversubscribed many times over,
+# and the tiny grid's small ops run fastest on one thread in any case
+# (the multiphase slice alone: 83 s with 8 threads, 52 s with 1)
+torch.set_num_threads(1)
 
 TINY_GRID = dict(nf=20, n_extra=10, nka=16, nkt=16, nb=8)
 # BTZ96 radiation-fog configuration of __graft_entry__, with the inversion
@@ -41,10 +49,15 @@ B = 2
 # products): enough for every name the drivers look up, few enough that
 # the JAX chemistry minute compiles in well under a minute
 N_GAS = 20
+# the small synthetic tot mechanism: the gas species through SO2 and DMS
+# (the fewest the stand-in takes) and the 25 aqueous stems the drivers
+# look up, in 4 bins: nvar 115, 458 reactions
+N_GAS_TOT = 12
+N_AQ_TOT = 25
 
 
 def make_models(inpdir, dtype="float64", radiation=False, mechdir=None,
-                **cfg):
+                multiphase=False, **cfg):
     """(JAX model, port model, JAX initial state) on the tiny grid, with
     radiation on in both or in neither.
 
@@ -54,10 +67,12 @@ def make_models(inpdir, dtype="float64", radiation=False, mechdir=None,
     reads only the state that the rest of the init has made).
 
     With mechdir, both run the gas-phase chemistry (chem=True, nkc_l=0) of
-    the small synthetic gas mechanism written there, and photolysis on the
-    synthetic tables written to inpdir; the JAX init's photolysis call is
-    jitted too, after its radiation call, as the JAX init orders them.
-    Further keywords go into both configurations.
+    the small synthetic gas mechanism written there or, with multiphase,
+    the multiphase chemistry (chem=True, nkc_l=4) of the small synthetic
+    tot mechanism, and photolysis on the synthetic tables written to
+    inpdir; the JAX init's photolysis call is jitted too, after its
+    radiation call, as the JAX init orders them.  Further keywords go
+    into both configurations.
     """
     write_synthetic_clarke_table(inpdir)
     if radiation:
@@ -65,8 +80,13 @@ def make_models(inpdir, dtype="float64", radiation=False, mechdir=None,
     kw = dict(BTZ96, dtype=dtype, inpdir=str(inpdir), **cfg)
     if mechdir is not None:
         write_synthetic_photolysis_tables(inpdir)
-        write_synthetic_gas_mechanism(mechdir, N_GAS)
-        kw.update(chem=True, nkc_l=0, mechdir=str(mechdir))
+        if multiphase:
+            write_synthetic_tot_mechanism(mechdir, N_GAS_TOT, N_AQ_TOT)
+        else:
+            write_synthetic_gas_mechanism(mechdir, N_GAS)
+        kw = dict(kw, chem=True, nkc_l=4 if multiphase else 0,
+                  mechdir=str(mechdir))
+        kw.update(cfg)
     jm = JaxModel(MistraConfig(grid=GridParams(**TINY_GRID), **kw))
     jm.radiation_enabled = False
     js = jm.init_state()
@@ -213,12 +233,16 @@ def assert_rows_close(want, got, tol, what=""):
 
 
 def assert_chem_close(want, got, tol, what="chem"):
-    """The gas-phase chemistry state: sgas and photol_j per row (species,
-    J slot), vg per field, nonconv exactly."""
+    """The chemistry state, gas-phase or multiphase: the concentrations
+    (sgas, or conc through its sgas alias) and photol_j per row (species,
+    J slot), vg per field; nonconv and the multiphase state's cloud flags
+    exactly."""
     assert_rows_close(want.sgas, got.sgas, tol, f"{what}.sgas")
     assert_rows_close(want.photol_j, got.photol_j, tol, f"{what}.photol_j")
     assert_close(want.vg, got.vg, tol, f"{what}.vg")
     assert_equal_int(want.nonconv, got.nonconv, f"{what}.nonconv")
+    if hasattr(got, "cloud"):
+        assert_equal_int(want.cloud, got.cloud, f"{what}.cloud")
 
 
 def assert_state_close(js, ts, tol):

@@ -126,10 +126,10 @@ def test_float32_chem_minute_stays_float32(tmp_path):
 
 
 @pytest.mark.parametrize("refused", [
-    dict(chem=True, nkc_l=2), dict(chem=True, nkc_l=0, nuc=True),
+    dict(chem=True, nkc_l=4, nuc=True), dict(chem=True, nkc_l=0, nuc=True),
     dict(mic=False), dict(isurf=1), dict(box=True), dict(chamber=True)])
 def test_model_refuses_the_unported_configurations(tmp_path, refused):
-    """The multiphase driver (chem=T with nkc_l > 0), nucleation, mic=F,
+    """Nucleation (with the multiphase or the gas-phase driver), mic=F,
     the soil surface, box and chamber modes are not ported: Model raises
     instead of running something else."""
     write_synthetic_clarke_table(tmp_path)

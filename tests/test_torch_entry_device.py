@@ -1,8 +1,9 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: ``Model`` (chem=F and chem=T), ``GasKernel`` and ``BlockArrowSolver``
-built without a device take CUDA, and on a host without a card they raise
+CPU: ``Model`` (chem=F, chem=T with the gas-phase driver and chem=T with
+the multiphase driver), ``GasKernel`` and ``BlockArrowSolver`` built
+without a device take CUDA, and on a host without a card they raise
 instead of falling back to the CPU; a chem=T model builds its chemistry
-driver's kernel and stage solver on its own device."""
+driver's kernels and stage solvers on its own device."""
 
 from __future__ import annotations
 
@@ -20,14 +21,18 @@ from mistra_tpu_torch.radiation.tables import \
     write_synthetic_radiation_tables
 
 
-def model(tmp_path, chem=False, **kw):
+def model(tmp_path, chem=False, multiphase=False, **kw):
     write_synthetic_clarke_table(tmp_path)
     extra = {}
     if chem:
         write_synthetic_radiation_tables(tmp_path)
         write_synthetic_photolysis_tables(tmp_path)
-        tmech.write_synthetic_gas_mechanism(str(tmp_path), 20)
-        extra = dict(nkc_l=0, mechdir=str(tmp_path), zinv=100.0)
+        if multiphase:
+            tmech.write_synthetic_tot_mechanism(str(tmp_path), 12, 25)
+        else:
+            tmech.write_synthetic_gas_mechanism(str(tmp_path), 20)
+        extra = dict(nkc_l=4 if multiphase else 0, mechdir=str(tmp_path),
+                     zinv=100.0)
     cfg = pt.MistraConfig(grid=pt.GridParams(nf=20, n_extra=10, nka=16,
                                              nkt=16, nb=8),
                           chem=chem, mic=True, inpdir=str(tmp_path), **extra)
@@ -42,6 +47,8 @@ def mechanism(tmp_path):
 ENTRY_POINTS = {
     "Model": model,
     "Model chem=T": lambda p, **kw: model(p, chem=True, **kw),
+    "Model chem=T nkc_l=4": lambda p, **kw: model(p, chem=True,
+                                                  multiphase=True, **kw),
     "GasKernel": lambda p, **kw: GasKernel(mechanism(p), **kw),
     "BlockArrowSolver": lambda p, **kw: BlockArrowSolver(mechanism(p), **kw),
 }
@@ -66,3 +73,19 @@ def test_chem_model_builds_its_drivers_on_its_device(tmp_path):
     assert kern.stoich.device == m._chemistry.am3.device == m.device
     assert state.chem.sgas.device == m.device
     assert m._photolysis is not None
+
+
+def test_multiphase_model_builds_its_drivers_on_its_device(tmp_path):
+    """chem=T with nkc_l=4: the multiphase driver, whose float64 tot kernel
+    and gas-above kernel, their stage solvers and the state all live on
+    the model's device."""
+    m = model(tmp_path, chem=True, multiphase=True, device="cpu")
+    state = m.init_state(1)
+    drv = m._chemistry
+    assert type(drv).__name__ == "MultiphaseDriver"
+    tot, gas = drv.tot_kernel, drv.kernel
+    assert tot.dtype == torch.float64 and tot.solver == "block"
+    assert tot.device == tot.block.device == gas.device == m.device
+    assert tot.stoich.device == drv._es_tot.device == m.device
+    assert state.chem.conc.device == state.chem.cloud.device == m.device
+    assert state.chem.conc.shape[1] == drv.tot.nvar

@@ -1,7 +1,8 @@
 """The PyTorch port never imports JAX: the machine that runs it on the GPU
 has no JAX.  A fresh interpreter imports the port's package, its
-radiation driver, its chemistry kernel, its photolysis driver and its
-gas-phase chemistry driver, and finds no jax module."""
+radiation driver, its chemistry kernel, its photolysis driver, its
+gas-phase and multiphase chemistry drivers, the aqueous stack beneath
+them and the stiff-cell report, and finds no jax module."""
 
 from __future__ import annotations
 
@@ -19,7 +20,12 @@ ROOT = Path(__file__).resolve().parent.parent
     "mistra_tpu_torch", "mistra_tpu_torch.radiation.driver",
     "mistra_tpu_torch.chemistry.gas_kernel",
     "mistra_tpu_torch.photolysis.jrates",
-    "mistra_tpu_torch.chemistry.driver"])
+    "mistra_tpu_torch.chemistry.driver",
+    "mistra_tpu_torch.chemistry.driver_aq",
+    "mistra_tpu_torch.chemistry.aqueous",
+    "mistra_tpu_torch.chemistry.activity",
+    "mistra_tpu_torch.chemistry.sources",
+    "mistra_tpu_torch.chemistry.stiff_cells"])
 def test_port_imports_no_jax(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -67,7 +67,32 @@ Phases (any failure exits non-zero):
      and a midnight column, float64, two minutes, at the tiny grid of the
      tests (nf=20, n_extra=10, nka=nkt=16, the inversion at 100 m) with the
      small tot stand-in (12 gas species, 25 aqueous stems): the production
-     grid's tot solve would take the CPU ~10 s per column and substep.
+     grid's tot solve would take the CPU ~10 s per column and substep;
+ 12. nucleation column: phase 8's settings with nuc=True, napari and
+     lovejoy both on (appnucl2) and ifeed=1, 64 columns half at noon,
+     float32, two minutes, every kernel's launches counted; the fields
+     finite and nucleation adding particles in at least one column; the
+     steady minute beside phase 8's; one more minute under
+     torch.profiler (as each path of phases 13-14);
+ 13. box and chamber: 64 boxes of the box of tests/test_boxmodel.py:18-20
+     with the multiphase driver (nkc_l=4: integrate_box's tot solve at
+     the box level), two minutes, and the inverse at the box's own
+     first-launch shapes, bit-equal to the plain version and timed beside
+     it, torch.linalg.inv and its bound; 64 chambers of the Buxmann15_alpha
+     settings of tests/test_buxmann.py:65-71 (mic=F, nkc_l=0, halo, no
+     iodine) on chamber.dat, the clock at 13 min: the J-rates zero after
+     the first minute and the measured ones after the second, at 15 min;
+     float32, launches counted;
+ 14. bare soil (isurf=1): BTZ96 with mic=F and chem=T (the gas-phase
+     driver), then with mic=T and chem=F (both Bott kernels), 64 columns
+     half at noon, float32, two minutes each; the soil's tb and eb moved
+     and stayed finite;
+ 15. each path of phases 12-14 on the card against the CPU, and
+     nucleation with the multiphase driver at the configuration's defaults
+     (nkc_l=4, napari and lovejoy, ifeed=0): two columns (a midnight and a
+     noon column; chambers across the lights' edge), float64, two minutes,
+     the tiny grid of phase 11 with the small tot stand-in and a small gas
+     stand-in that holds OIO (45 gas species).
 
 The input tables of phases 3-4b and 8-9 are the reference's where $INPDIR
 holds them (clarke.dat; pifm2_171115.dat with the six Mie files;
@@ -87,7 +112,11 @@ is the reference's when $MECHDIR holds those three files and
 master_aqueous.eqn, tot_eqn12.head and tot_eqn34.head, else a synthetic
 stand-in of its shape (write_synthetic_tot_mechanism: nvar 410, bins of
 80/79/78/78, a gas core of 95, ~1,590 reactions; not the reference's
-chemistry); phase 11 always takes the small stand-in.
+chemistry); phase 11 always takes the small stand-in.  Phases 12-14 take
+the gas and tot mechanisms of phases 8 and 10; chamber.dat is $INPDIR's
+(photolys/chamber.dat) where it holds one, else a synthetic stand-in
+(mistra_tpu_torch.boxmodel.write_synthetic_chamber_dat; not the
+reference's measurements).
 
 The last two lines are a JSON object of per-kernel results and the
 device line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -236,6 +265,44 @@ MP_DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "conc": 1e-2,
 # float32: the same float64 calculation on the same float32 inputs, its
 # result rounded to float32 (2^-24 ~ 6e-8) on each device: 1e-6
 PHOT_TOL = {torch.float64: 1e-9, torch.float32: 1e-6}
+# the modes slice (phases 12-15)
+# phase 12: the chem=T minute's settings with nucleation, both mechanisms
+# (appnucl2) and the feedback into the particles
+NUC = dict(CHEM_T, nuc=True, napari=True, lovejoy=True, ifeed=1)
+NUC_COLUMNS = 64
+MODE_MINUTES = 2
+# phase 13: the box of tests/test_boxmodel.py:18-20 with the multiphase
+# driver (nkc_l=4, so integrate_box runs the tot solve at the box level)
+BOX = dict(MULTIPHASE, box=True, nlevbox=5, z_box=50.0)
+# the Buxmann15_alpha chamber of tests/test_buxmann.py:65-71 (its
+# mechanism directory aside: the gas stand-in, or $MECHDIR's)
+CHAMBER = dict(chamber=True, box=False, chem=True, mic=False, halo=True,
+               iod=False, nkc_l=0, zinv=100.0, tw=288.40, rhsurf=0.6,
+               ug=7.0, vg=0.0, alat=-75.6, z0=1.0e-5, lp_buxmann15alph=True)
+BOX_COLUMNS = 64
+# the chambers' clock before their two minutes: the first ends at 14 min
+# (lights off), the second at 15 min, where the lights go on
+CHAMBER_START_S = 13.0 * 60.0
+# phase 14: BTZ96 on bare soil, mic=F with the gas-phase driver (chem=T:
+# nkc_l keeps its default 4, the gas-phase driver all the same), and mic=T
+# with chemistry off, which runs both Bott kernels
+SOIL_MIC_F = dict(BTZ96, isurf=1, mic=False, chem=True)
+SOIL = dict(BTZ96, isurf=1)
+SOIL_COLUMNS = 64
+# phase 15: the tests' tiny grid and small stand-ins (a gas stand-in with
+# OIO, the 41st named species, for nucleation's Lovejoy path); nucleation
+# with the multiphase driver at the configuration's defaults (napari and
+# lovejoy, ifeed=0: without the feedback, whose trace of particles carried
+# into bin 3 makes that bin's trace concentrations, 1e-35 to 1e-22
+# mol/m3, move by their own size under rounding, as
+# tests/test_torch_nucleation_feedback.py sets out)
+MODES_CMP_GAS = 45
+NUC_MULTIPHASE = dict(MULTIPHASE, nuc=True)
+# card against CPU on the new paths, two columns, float64, two minutes:
+# t, xm1, ff and the concentrations as MP_DEVICE_TOL; the soil's tb and
+# eb as t (the same surface balance on states that differ by ~1e-6)
+MODES_DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "tb": 1e-6,
+                    "eb": 1e-6, "conc": 1e-2}
 
 
 def log(msg: str) -> None:
@@ -667,13 +734,14 @@ def phase_main(inpdir, bott_cuda):
                     "main_path_rows": rows}
 
 
-def midnight_and_noon(model, B=2):
-    """model's initial state of B columns: the first half at 00:00 (the
-    BTZ96 start) and the second half at 12:00 local solar time, each with
-    its own solar zenith angle and, with chemistry on, its own initial
-    J-rates."""
+def midnight_and_noon(model, B=2, state=None):
+    """model's initial state of B columns (or state, B columns of it): the
+    first half at 00:00 (the BTZ96 start) and the second half at 12:00
+    local solar time, each with its own solar zenith angle and, with
+    chemistry on, its own initial J-rates."""
     from mistra_tpu_torch.model import solar_zenith
-    state = model.init_state(B)
+    if state is None:
+        state = model.init_state(B)
     lst = state.tim.lst.clone()
     lst[B // 2:] = 12
     u0 = solar_zenith(lst, state.tim.lmin, model.astro.alat,
@@ -1035,6 +1103,116 @@ def phase_lu_chem_t(mechdir):
     return out
 
 
+@contextlib.contextmanager
+def ros3_solves(*kernels):
+    """While open, the lists it yields, one per kernel, gain the Ros3 info
+    of every integrate call of that kernel."""
+    seen = [[] for _ in kernels]
+    saved = [k.integrate for k in kernels]
+
+    def recording(f, calls):
+        def integrate(*a, **kw):
+            y, info = f(*a, **kw)
+            calls.append(info)
+            return y, info
+        return integrate
+
+    for k, f, calls in zip(kernels, saved, seen):
+        k.integrate = recording(f, calls)
+    try:
+        yield seen
+    finally:
+        for k, f in zip(kernels, saved):
+            k.integrate = f
+
+
+def ros3_summary(infos):
+    """One kernel's integrate calls: Ros3 steps and failures per cell
+    [calls, cells], and the loop iterations (each call's largest step
+    count: the batched inverse launches twice per iteration)."""
+    if not infos:
+        return {"nsteps": np.zeros((0, 0), np.int64),
+                "failed": np.zeros((0, 0), bool), "iterations": 0}
+    nsteps = torch.stack([i["nsteps"] for i in infos]).cpu().numpy()
+    return {"nsteps": nsteps,
+            "failed": torch.stack([i["failed"] for i in infos]).cpu().numpy(),
+            "iterations": int(nsteps.max(axis=1).sum())}
+
+
+def run_minutes(step, state, minutes, kernels, bott_cuda, lu_cuda,
+                after_minute=None):
+    """minutes of step(state) with every kernel's launch counter set to 0
+    just before and read just after, and the Ros3 solves of kernels
+    recorded; after_minute(minute, state) runs after each minute, outside
+    the timing.  Returns (state, minute times in s, launch counts, one
+    ``ros3_summary`` per kernel)."""
+    times = []
+    with ros3_solves(*kernels) as solves:
+        bott_cuda.reset_counts()
+        lu_cuda.reset_counts()
+        for minute in range(minutes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = step(state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if after_minute is not None:
+                after_minute(minute, state)
+        counts = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
+                  "bott_advect": bott_cuda.bott_advect.launches,
+                  "batched_inv": lu_cuda.batched_inv.launches}
+    return state, times, counts, [ros3_summary(c) for c in solves]
+
+
+def loop_iterations(solves):
+    return sum(r["iterations"] for r in solves)
+
+
+def minute_figures(B, times, counts, iterations, nonconv):
+    """The figures of a path's run: minute times in ms, the steady minute
+    (the first, the init transient, left out) and the mean of all
+    minutes with their column-minutes/s, launches, Ros3 iterations and
+    nonconv."""
+    steady = times[1:] if len(times) > 1 else times
+    ms = 1e3 * sum(steady) / len(steady)
+    mean_ms = 1e3 * sum(times) / len(times)
+    return {"columns": B, "minutes": len(times),
+            "minute_ms": [1e3 * t for t in times], "steady_minute_ms": ms,
+            "column_minutes_per_s": B / (ms / 1e3), "mean_minute_ms": mean_ms,
+            "mean_column_minutes_per_s": B / (mean_ms / 1e3),
+            "launches": counts, "ros3_iterations": iterations,
+            "nonconv": nonconv}
+
+
+def profile_minute(what, step, state, fig):
+    """One more minute of step(state) under torch.profiler, its wall and
+    device time and top kernels logged and added to fig."""
+    _, wall, busy, events, top = profile_call(lambda: step(state))
+    log_profile(f"one {what} minute", wall, busy, events, top)
+    fig.update(profiled_minute_wall_ms=1e3 * wall,
+               profiled_minute_busy_ms=1e3 * busy,
+               profiled_minute_events=events,
+               profiled_minute_top_kernels=[
+                   {"kernel": n, "launches": c, "ms": t} for n, c, t in top])
+
+
+def check_launches(what, counts, iterations, bott, minutes=MODE_MINUTES):
+    """The inverse launched twice per Ros3 iteration; both Bott kernels
+    launched (dwsum at least once, advect once per substep) in minutes
+    minutes of a path with particle growth (bott), neither on one
+    without."""
+    check(counts["batched_inv"] == 2 * iterations,
+          f"{what}: batched_inv launches {counts['batched_inv']} != 2 x "
+          f"{iterations} Ros3 iterations")
+    if bott:
+        check(counts["bott_dwsum"] >= 6 * minutes
+              and counts["bott_advect"] == 6 * minutes,
+              f"{what}: Bott launches {counts}")
+    else:
+        check(counts["bott_dwsum"] == counts["bott_advect"] == 0,
+              f"{what}: Bott launches {counts} without particle growth")
+
+
 def check_state(state, what):
     """Every floating field of state finite, the chemistry's where the
     state has one."""
@@ -1068,35 +1246,18 @@ def phase_chem_t(inpdir, mechdir, bott_cuda, lu_cuda):
     check(model._photolysis is not None, "no photolysis driver")
     noon = torch.arange(B, device=state.rad.u0.device) >= B // 2
 
-    steps = []
-    integrate = drv.integrate_column
-
-    def counted(st, dt):
-        out = integrate(st, dt)
-        steps.append(drv.last_info["nsteps"])
-        return out
-
-    drv.integrate_column = counted
     t_start = state.tim.time.clone()
     pj_start = state.chem.photol_j.clone()
-    times, held = [], None
-    try:
-        bott_cuda.reset_counts()
-        lu_cuda.reset_counts()
-        for minute in range(CHEM_T_MINUTES):
-            t0 = time.perf_counter()
-            state = model.minute_step(state)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if minute == 0:
-                held = bool(torch.equal(state.chem.photol_j, pj_start))
-        counts = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
-                  "bott_advect": bott_cuda.bott_advect.launches,
-                  "batched_inv": lu_cuda.batched_inv.launches}
-    finally:
-        drv.integrate_column = integrate
-    nsteps = torch.stack(steps).cpu().numpy()          # [substeps, cells]
-    iterations = int(nsteps.max(axis=1).sum())
+    held = []
+
+    def odd_minute(minute, st):
+        if minute == 0:
+            held.append(bool(torch.equal(st.chem.photol_j, pj_start)))
+
+    state, times, counts, (gas,) = run_minutes(
+        model.minute_step, state, CHEM_T_MINUTES, (drv.kernel,), bott_cuda,
+        lu_cuda, after_minute=odd_minute)
+    nsteps, iters = gas["nsteps"], gas["iterations"]    # [substeps, cells]
 
     gp = cfg.grid
     check_state(state, "chem=T minute")
@@ -1109,18 +1270,12 @@ def phase_chem_t(inpdir, mechdir, bott_cuda, lu_cuda):
     check(bool((pj[noon].amax(dim=(1, 2)) > 0.0).all()),
           "J-rates all zero in a noon column")
     check(bool((pj[~noon] == 0.0).all()), "J-rates in a midnight column")
-    check(held, "the J-rates changed on the odd minute")
-    check(counts["bott_dwsum"] >= 6 * CHEM_T_MINUTES, f"launches {counts}")
-    check(counts["bott_advect"] == 6 * CHEM_T_MINUTES, f"launches {counts}")
-    check(counts["batched_inv"] == 2 * iterations,
-          f"batched_inv launches {counts['batched_inv']} != 2 x "
-          f"{iterations} Ros3 iterations")
+    check(held == [True], "the J-rates changed on the odd minute")
+    check_launches("chem=T minute", counts, iters, bott=True,
+                   minutes=CHEM_T_MINUTES)
     nonconv = state.chem.nonconv.cpu().numpy()
-    # as in phase_main, the first minute (the init transient: the Ros3
-    # steps of the first substep) is left out of the steady minute
-    steady = times[1:] if len(times) > 1 else times
-    ms = 1e3 * sum(steady) / len(steady)
-    mean_ms = 1e3 * sum(times) / len(times)
+    fig = minute_figures(B, times, counts, iters, int(nonconv.sum()))
+    ms, mean_ms = fig["steady_minute_ms"], fig["mean_minute_ms"]
     log(f"chem=T minute: {B} columns (half at 00:00, half at 12:00) x "
         f"{CHEM_T_MINUTES} minutes, float32, grid n={gp.n} nka={gp.nka} "
         f"nkt={gp.nkt}, nvar {drv.mech.nvar}, nrxn {drv.mech.nrxn}, "
@@ -1129,7 +1284,7 @@ def phase_chem_t(inpdir, mechdir, bott_cuda, lu_cuda):
         f"{B / (ms / 1e3):.2f} column-minutes/s (mean of all minutes "
         f"{mean_ms:.1f} ms = {B / (mean_ms / 1e3):.2f}); Ros3 steps per "
         f"cell and substep mean {nsteps.mean():.2f} max {nsteps.max()} (first "
-        f"substep {nsteps[0].mean():.2f}/{nsteps[0].max()}), {iterations} "
+        f"substep {nsteps[0].mean():.2f}/{nsteps[0].max()}), {iters} "
         f"loop iterations; nonconv {int(nonconv.sum())} (max per column "
         f"{int(nonconv.max())}); launches {counts}; J_NO2 at the surface "
         f"of a noon column {pj[B - 1, 0, 1].item():.3e} 1/s")
@@ -1149,24 +1304,11 @@ def phase_chem_t(inpdir, mechdir, bott_cuda, lu_cuda):
         f"{phot_ms:.2f} ms; per call {dev_events} device events, {ops} "
         f"aten ops")
 
-    state, wall, busy, events, top = profile_call(
-        lambda: model.minute_step(state))
-    log_profile("one chem=T minute", wall, busy, events, top)
-    return counts, iterations, {
-        "columns": B, "minutes": CHEM_T_MINUTES,
-        "minute_ms": [1e3 * t for t in times],
-        "steady_minute_ms": ms, "column_minutes_per_s": B / (ms / 1e3),
-        "mean_minute_ms": mean_ms,
-        "mean_column_minutes_per_s": B / (mean_ms / 1e3), "init_s": init_s,
-        "ros3_steps_mean": float(nsteps.mean()),
-        "ros3_steps_max": int(nsteps.max()), "ros3_iterations": iterations,
-        "nonconv": int(nonconv.sum()), "photolysis_ms": phot_ms,
-        "photolysis_device_events": dev_events, "photolysis_aten_ops": ops,
-        "profiled_minute_wall_ms": 1e3 * wall,
-        "profiled_minute_busy_ms": 1e3 * busy,
-        "profiled_minute_events": events,
-        "profiled_minute_top_kernels": [
-            {"kernel": n, "launches": c, "ms": t} for n, c, t in top]}
+    fig.update(init_s=init_s, ros3_steps_mean=float(nsteps.mean()),
+               ros3_steps_max=int(nsteps.max()), photolysis_ms=phot_ms,
+               photolysis_device_events=dev_events, photolysis_aten_ops=ops)
+    profile_minute("chem=T", model.minute_step, state, fig)
+    return counts, iters, fig
 
 
 def rows_err(got, ref):
@@ -1270,10 +1412,11 @@ def multiphase_config(inpdir, mechdir, dtype, grid=None, **kw):
                         **dict(MULTIPHASE, **kw))
 
 
-def capture_inverse_inputs(drv, state):
+def capture_inverse_inputs(solve):
     """{(dtype, m): the input of the first batched inverse of each shape}
-    in one chemistry substep of drv on state: the tot solve's aqueous
-    blocks and gas core, the gas-above solve's bins and gas core."""
+    in solve(), one chemistry substep: for the multiphase driver's
+    integrate_column the tot solve's aqueous blocks and gas core, the
+    gas-above solve's bins and gas core."""
     from mistra_tpu_torch.chemistry import block_solver
     seen = {}
     inverse = block_solver.batched_inv
@@ -1284,7 +1427,7 @@ def capture_inverse_inputs(drv, state):
 
     block_solver.batched_inv = keep
     try:
-        drv.integrate_column(state, DT)
+        solve()
     finally:
         block_solver.batched_inv = inverse
     torch.cuda.synchronize()
@@ -1316,40 +1459,16 @@ def phase_multiphase(inpdir, mechdir, growth, bott_cuda, lu_cuda):
     check(model._photolysis is not None, "no photolysis driver")
     noon = torch.arange(B, device=state.rad.u0.device) >= B // 2
 
-    tot_steps, gas_steps, failed = [], [], []
-    integrate = drv.integrate_column
-
-    def counted(st, dt):
-        out = integrate(st, dt)
-        tot_steps.append(drv.last_info["nsteps"])
-        failed.append(drv.last_info["failed"])
-        gas_steps.append(drv.last_gas_info["nsteps"])
-        return out
-
-    drv.integrate_column = counted
     t_start = state.tim.time.clone()
-    times = []
-    try:
-        bott_cuda.reset_counts()
-        lu_cuda.reset_counts()
-        for _ in range(MP_MINUTES):
-            t0 = time.perf_counter()
-            state = model.minute_step(state)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        counts = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
-                  "bott_advect": bott_cuda.bott_advect.launches,
-                  "batched_inv": lu_cuda.batched_inv.launches}
-    finally:
-        drv.integrate_column = integrate
-    tot = torch.stack(tot_steps).cpu().numpy()          # [substeps, cells]
-    gas = torch.stack(gas_steps).cpu().numpy()
+    state, times, counts, (tot, gas) = run_minutes(
+        model.minute_step, state, MP_MINUTES, (drv.tot_kernel, drv.kernel),
+        bott_cuda, lu_cuda)
+    it_tot, it_gas = tot["iterations"], gas["iterations"]
     # (substep, layer) of every cell that ran out of Ros3 steps
-    sub, cell = np.nonzero(torch.stack(failed).cpu().numpy())
+    sub, cell = np.nonzero(tot["failed"])
     where_failed = sorted({(int(a), int(c) % (cfg.grid.nf - 1) + 1)
                            for a, c in zip(sub, cell)})
-    it_tot = int(tot.max(axis=1).sum())
-    it_gas = int(gas.max(axis=1).sum())
+    tot, gas = tot["nsteps"], gas["nsteps"]             # [substeps, cells]
 
     gp = cfg.grid
     check_state(state, "multiphase minute")
@@ -1362,18 +1481,15 @@ def phase_multiphase(inpdir, mechdir, growth, bott_cuda, lu_cuda):
     check(bool((pj[noon].amax(dim=(1, 2)) > 0.0).all()),
           "J-rates all zero in a noon column")
     check(bool((pj[~noon] == 0.0).all()), "J-rates in a midnight column")
-    check(counts["bott_dwsum"] >= 6 * MP_MINUTES, f"launches {counts}")
-    check(counts["bott_advect"] == 6 * MP_MINUTES, f"launches {counts}")
-    check(counts["batched_inv"] == 2 * (it_tot + it_gas),
-          f"batched_inv launches {counts['batched_inv']} != 2 x "
-          f"({it_tot} + {it_gas}) Ros3 iterations")
+    check_launches("multiphase minute", counts, it_tot + it_gas, bott=True,
+                   minutes=MP_MINUTES)
     nonconv = state.chem.nonconv.cpu().numpy()
+    fig = minute_figures(B, times, counts, it_tot + it_gas,
+                         int(nonconv.sum()))
+    ms, mean_ms = fig["steady_minute_ms"], fig["mean_minute_ms"]
     aq = torch.as_tensor(np.nonzero(np.asarray(drv.tot.species_bin))[0],
                          device=state.chem.conc.device)
     aq_max = state.chem.conc[:, aq, 1:gp.nf].amax().item()
-    steady = times[1:] if len(times) > 1 else times
-    ms = 1e3 * sum(steady) / len(steady)
-    mean_ms = 1e3 * sum(times) / len(times)
     blk = drv.tot_kernel.block
     log(f"multiphase minute: {B} columns (half at 00:00, half at 12:00) x "
         f"{MP_MINUTES} minutes, float32 state, tot solve float64, grid "
@@ -1405,34 +1521,21 @@ def phase_multiphase(inpdir, mechdir, growth, bott_cuda, lu_cuda):
         f"{[round(1e3 * t, 2) for t in liq_s]} ms, mean {liq_ms:.2f} ms "
         f"(6 calls per minute: {100.0 * 6 * liq_ms / ms:.1f} % of the "
         f"steady minute)")
-    inputs = capture_inverse_inputs(drv, state)
+    inputs = capture_inverse_inputs(
+        lambda: drv.integrate_column(state, DT))
 
+    fig.update(init_s=init_s, tot_nvar=drv.tot.nvar, tot_nrxn=drv.tot.nrxn,
+               tot_cells=int(tot.shape[1]), gas_cells=int(gas.shape[1]),
+               tot_ros3_iterations=it_tot,
+               tot_ros3_steps_mean=float(tot.mean()),
+               tot_ros3_steps_max=int(tot.max()),
+               gas_ros3_iterations=it_gas,
+               gas_ros3_steps_mean=float(gas.mean()),
+               gas_ros3_steps_max=int(gas.max()),
+               failed_substep_layer=where_failed, liq_parm_ms=liq_ms)
     with keeping_bott_inputs(growth) as bott_inputs:
-        state, wall, busy, events, top = profile_call(
-            lambda: model.minute_step(state))
-    log_profile("one multiphase minute", wall, busy, events, top)
-    return counts, it_tot + it_gas, {
-        "columns": B, "minutes": MP_MINUTES,
-        "minute_ms": [1e3 * t for t in times],
-        "steady_minute_ms": ms, "column_minutes_per_s": B / (ms / 1e3),
-        "mean_minute_ms": mean_ms,
-        "mean_column_minutes_per_s": B / (mean_ms / 1e3), "init_s": init_s,
-        "tot_nvar": drv.tot.nvar, "tot_nrxn": drv.tot.nrxn,
-        "tot_cells": int(tot.shape[1]), "gas_cells": int(gas.shape[1]),
-        "tot_ros3_iterations": it_tot,
-        "tot_ros3_steps_mean": float(tot.mean()),
-        "tot_ros3_steps_max": int(tot.max()),
-        "gas_ros3_iterations": it_gas,
-        "gas_ros3_steps_mean": float(gas.mean()),
-        "gas_ros3_steps_max": int(gas.max()),
-        "nonconv": int(nonconv.sum()), "failed_substep_layer": where_failed,
-        "liq_parm_ms": liq_ms,
-        "profiled_minute_wall_ms": 1e3 * wall,
-        "profiled_minute_busy_ms": 1e3 * busy,
-        "profiled_minute_events": events,
-        "profiled_minute_top_kernels": [
-            {"kernel": n, "launches": c, "ms": t} for n, c, t in top]}, \
-        inputs, bott_inputs
+        profile_minute("multiphase", model.minute_step, state, fig)
+    return counts, it_tot + it_gas, fig, inputs, bott_inputs
 
 
 def phase_bott_multiphase(growth, bott_cuda, kept):
@@ -1447,20 +1550,20 @@ def phase_bott_multiphase(growth, bott_cuda, kept):
                         plain_reps=3, what=" (multiphase rows)")
 
 
-def phase_lu_multiphase(inputs):
-    """The inverse kernel at the multiphase minute's own shapes and
-    dtypes: the path's stage matrices and a batch of each shape that
-    needs pivoting, bit-equal to the plain version; returns the results
-    per (dtype, m, kind)."""
+def phase_lu_multiphase(inputs, path="multiphase"):
+    """The inverse kernel at a path's own shapes and dtypes (by default
+    the multiphase minute's): the path's stage matrices and a batch of
+    each shape that needs pivoting, bit-equal to the plain version;
+    returns the results per (dtype, m, kind)."""
     from mistra_tpu_torch.chemistry import lu, lu_cuda
     rng = np.random.default_rng(7)
     out = {}
     for (_, m), a in sorted(inputs.items(), key=lambda kv: (
             str(kv[0][0]), kv[0][1])):
         out.update(inverse_cases(lu, lu_cuda, a, rng, ("stage", "pivoting"),
-                                 " multiphase"))
+                                 f" {path}"))
     for (dtype, m, kind), r in out.items():
-        check(r["bit_equal"], f"inverse m={m} {dtype} {kind} (multiphase) "
+        check(r["bit_equal"], f"inverse m={m} {dtype} {kind} ({path}) "
               "is not bit-equal to the plain version")
     return out
 
@@ -1514,6 +1617,273 @@ def phase_multiphase_device_vs_cpu(inpdir):
         + f"; nonconv card {got['nonconv'].tolist()} cpu "
         f"{ref['nonconv'].tolist()}; hysteresis flags differing "
         f"{cloud_diff}")
+    return errs
+
+
+def log_path(what, cfg, fig, extra=""):
+    gp = cfg.grid
+    log(f"{what}: {fig['columns']} columns x {fig['minutes']} minutes, "
+        f"{cfg.dtype}, grid n={gp.n} nf={gp.nf} nka={gp.nka} nkt={gp.nkt}; "
+        f"minute step {[round(t, 1) for t in fig['minute_ms']]} ms, steady "
+        f"{fig['steady_minute_ms']:.1f} ms = "
+        f"{fig['column_minutes_per_s']:.2f} column-minutes/s; "
+        f"{fig['ros3_iterations']} Ros3 iterations, nonconv "
+        f"{fig['nonconv']}; launches {fig['launches']}{extra}")
+
+
+def path_config(inpdir, mechdir, settings, dtype, grid=None):
+    """The configuration of one of phases 12-15's paths: settings on GRID
+    (or grid)."""
+    from mistra_tpu_torch import GridParams, MistraConfig
+    return MistraConfig(grid=grid or GRID or GridParams(), dtype=dtype,
+                        inpdir=inpdir, mechdir=mechdir, **settings)
+
+
+def phase_nucleation(inpdir, gasdir, bott_cuda, lu_cuda, chem_t):
+    """The nucleation column on the card: the chem=T minute (phase 8)
+    with nuc=T, napari and lovejoy (appnucl2) and ifeed=1, NUC_COLUMNS
+    columns half at noon, float32, MODE_MINUTES minutes; the particles
+    that nucleation added per column are summed over every call."""
+    from mistra_tpu_torch import Model
+    cfg = path_config(inpdir, gasdir, NUC, "float32")
+    model = Model(cfg, device=DEVICE)
+    B = NUC_COLUMNS
+    state = midnight_and_noon(model, B)
+    nuc, drv = model._nucleation, model._chemistry
+    check(nuc is not None, "no nucleation driver")
+    vapors = [v[0] for v in nuc.vapors]
+    added = torch.zeros(B, dtype=torch.float64, device=DEVICE)
+
+    def counted(st, dt):
+        out, diag = nuc(st, dt)
+        j_app = diag["xn_app"]
+        added.add_(torch.where(j_app > 0.1, j_app * dt, 0.0).sum(1).double())
+        return out, diag
+
+    model._nucleation = counted
+    try:
+        state, times, counts, solves = run_minutes(
+            model.minute_step, state, MODE_MINUTES, (drv.kernel,), bott_cuda,
+            lu_cuda)
+    finally:
+        model._nucleation = nuc
+    iters = loop_iterations(solves)
+    check_state(state, "nucleation column")
+    check_launches("nucleation column", counts, iters, bott=True)
+    columns = int((added > 0.0).sum())
+    check(columns > 0, "nucleation added no particles in any column")
+    fig = minute_figures(B, times, counts, iters,
+                         int(state.chem.nonconv.sum()))
+    fig.update(vapors=vapors, nucleating_columns=columns,
+               nucleated_per_cm3_max=float(added.max()),
+               chem_t_steady_minute_ms=chem_t["steady_minute_ms"])
+    log_path("nucleation column (chem=T nkc_l=0, nuc=T, napari + lovejoy, "
+             "ifeed=1)", cfg, fig,
+             f"; vapors {vapors}; nucleation added particles in {columns} "
+             f"of {B} columns (up to {fig['nucleated_per_cm3_max']:.3e} "
+             f"/cm3 in one column, summed over its levels and substeps); "
+             f"the chem=T minute (phase 8) steady "
+             f"{chem_t['steady_minute_ms']:.1f} ms")
+    profile_minute("nucleation column", model.minute_step, state, fig)
+    return counts, fig
+
+
+def chamber_dat_dir(inpdir):
+    """inpdir/photolys with $INPDIR's chamber.dat linked there where it has
+    one, else the synthetic stand-in written there (unless it holds one
+    already)."""
+    from mistra_tpu_torch.boxmodel import write_synthetic_chamber_dat
+    phot = os.path.join(inpdir, "photolys")
+    os.makedirs(phot, exist_ok=True)
+    if os.path.exists(os.path.join(phot, "chamber.dat")):
+        return phot
+    ref = os.path.join(os.environ.get("INPDIR") or "", "photolys",
+                       "chamber.dat")
+    if os.environ.get("INPDIR") and os.path.exists(ref):
+        os.symlink(os.path.abspath(ref), os.path.join(phot, "chamber.dat"))
+        log(f"chamber.dat: the reference's, from INPDIR ({ref})")
+    else:
+        write_synthetic_chamber_dat(phot)
+        log("chamber.dat: synthetic stand-in (INPDIR lacks "
+            "photolys/chamber.dat)")
+    return phot
+
+
+def box_state(bm, B):
+    """B boxes (half at noon) or, in chamber mode, B chambers with the
+    clock at CHAMBER_START_S."""
+    state = bm.init_state(B)
+    if bm.cfg.chamber:
+        return state.replace(tim=state.tim.replace(
+            time=torch.full_like(state.tim.time, CHAMBER_START_S)))
+    return midnight_and_noon(bm.model, B, state)
+
+
+def phase_box(inpdir, totdir, gasdir, bott_cuda, lu_cuda):
+    """Box and chamber on the card: BOX_COLUMNS boxes of BOX (the tot
+    solve at the box level: integrate_box) and BOX_COLUMNS chambers of
+    CHAMBER (mic=F, the gas-phase driver over the whole column), float32,
+    MODE_MINUTES minutes each, launches counted; the chambers' J-rates are
+    zero after the first minute (14 min) and the measured ones after the
+    second (15 min).  Returns the launch counts, the figures and the
+    inputs of the box's first inverse launches."""
+    from mistra_tpu_torch.boxmodel import N_BL, BoxModel
+    out, counts = {}, {}
+    cfg = path_config(inpdir, totdir, BOX, "float32")
+    bm = BoxModel(cfg, device=DEVICE)
+    state = box_state(bm, BOX_COLUMNS)
+    drv = bm.model._chemistry
+    check(type(drv).__name__ == "MultiphaseDriver", f"box driver {drv}")
+    inputs = capture_inverse_inputs(
+        lambda: drv.integrate_box(state, DT, N_BL))
+    state, times, counts["box"], solves = run_minutes(
+        bm.minute_step, state, MODE_MINUTES, (drv.tot_kernel,), bott_cuda,
+        lu_cuda)
+    iters = loop_iterations(solves)
+    check_state(state, "box")
+    check_launches("box", counts["box"], iters, bott=False)
+    out["box"] = minute_figures(BOX_COLUMNS, times, counts["box"], iters,
+                                int(state.chem.nonconv.sum()))
+    shapes = sorted((str(a.dtype), tuple(a.shape)) for a in inputs.values())
+    log_path(f"box (nkc_l=4, nlevbox={cfg.nlevbox}, z_box {bm.z_box:.1f} m, "
+             f"the tot solve at the box level)", cfg, out["box"],
+             f"; the inverse's shapes {shapes}")
+    profile_minute("box", bm.minute_step, state, out["box"])
+    del bm, state
+
+    chamber_dat_dir(inpdir)
+    cfg = path_config(inpdir, gasdir, CHAMBER, "float32")
+    bm = BoxModel(cfg, device=DEVICE)
+    state = box_state(bm, BOX_COLUMNS)
+    drv = bm.model._chemistry
+    check(type(drv).__name__ == "ChemistryDriver", f"chamber driver {drv}")
+    _, _, jmeas = bm.chamber_dat
+    lit = {}
+
+    def lights(minute, st):
+        pj = st.chem.photol_j
+        lit[minute] = bool((pj != 0.0).any())
+        if minute == 1:
+            for slot, val in jmeas.items():
+                check(bool((pj[:, slot - 1] == np.float32(val)).all()),
+                      f"chamber J slot {slot} is not the measured {val}")
+
+    state, times, counts["chamber"], solves = run_minutes(
+        bm.minute_step, state, MODE_MINUTES, (drv.kernel,), bott_cuda,
+        lu_cuda, after_minute=lights)
+    iters = loop_iterations(solves)
+    check_state(state, "chamber")
+    check(lit == {0: False, 1: True}, f"chamber lights {lit}")
+    check_launches("chamber", counts["chamber"], iters, bott=False)
+    out["chamber"] = minute_figures(BOX_COLUMNS, times, counts["chamber"],
+                                    iters, int(state.chem.nonconv.sum()))
+    log_path("chamber (Buxmann15_alpha settings, mic=F, the gas-phase "
+             "driver)", cfg, out["chamber"],
+             f"; J-rates zero at 14 min, the {len(jmeas)} measured slots "
+             f"at 15 min")
+    profile_minute("chamber (lights on)", bm.minute_step, state,
+                   out["chamber"])
+    return counts, out, inputs
+
+
+def phase_soil(inpdir, gasdir, bott_cuda, lu_cuda):
+    """The bare soil (isurf=1) on the card, SOIL_COLUMNS columns half at
+    noon, float32, MODE_MINUTES minutes each: with mic=F and the gas-phase
+    driver (SOIL_MIC_F), then with mic=T and chemistry off (SOIL); the
+    soil's tb and eb moved and stayed finite."""
+    from mistra_tpu_torch import Model
+    out, counts = {}, {}
+    for name, settings in (("soil mic=F", SOIL_MIC_F), ("soil", SOIL)):
+        cfg = path_config(inpdir, gasdir, settings, "float32")
+        model = Model(cfg, device=DEVICE)
+        state = midnight_and_noon(model, SOIL_COLUMNS)
+        tb0, eb0 = state.surf.tb.clone(), state.surf.eb.clone()
+        drv = model._chemistry
+        kernels = (drv.kernel,) if drv is not None else ()
+        state, times, counts[name], solves = run_minutes(
+            model.minute_step, state, MODE_MINUTES, kernels, bott_cuda,
+            lu_cuda)
+        iters = loop_iterations(solves)
+        check_state(state, name)
+        check(bool((state.surf.tb != tb0).any())
+              and bool((state.surf.eb != eb0).any()),
+              f"{name}: the soil did not move")
+        check_launches(name, counts[name], iters, bott=cfg.mic)
+        nonconv = int(state.chem.nonconv.sum()) if drv is not None else 0
+        out[name] = minute_figures(SOIL_COLUMNS, times, counts[name], iters,
+                                   nonconv)
+        ts = state.met.t[:, 0]
+        log_path(f"{name} (isurf=1, chem={cfg.chem})", cfg, out[name],
+                 f"; surface temperature {ts.min().item():.2f}.."
+                 f"{ts.max().item():.2f} K, top soil moisture "
+                 f"{state.surf.eb[:, 0].min().item():.4f}.."
+                 f"{state.surf.eb[:, 0].max().item():.4f}")
+        profile_minute(name, model.minute_step, state, out[name])
+    return counts, out
+
+
+def phase_modes_device_vs_cpu(inpdir):
+    """Each new path, and nucleation with the multiphase driver
+    (NUC_MULTIPHASE), on the card (kernels) against the CPU (plain
+    versions): two columns (a midnight and a noon column; chambers from
+    CHAMBER_START_S, across the lights' edge), float64, MODE_MINUTES
+    minutes, the tiny grid and small stand-ins."""
+    from mistra_tpu_torch import BoxModel, GridParams, Model
+    from mistra_tpu_torch.chemistry.mech import (
+        write_synthetic_gas_mechanism, write_synthetic_tot_mechanism)
+    grid = GridParams(**MP_CMP_GRID)
+    chamber_dat_dir(inpdir)
+    errs = {}
+    with tempfile.TemporaryDirectory(prefix="mistra_modes_") as tmp:
+        gas, tot = os.path.join(tmp, "gas"), os.path.join(tmp, "tot")
+        os.makedirs(gas)
+        os.makedirs(tot)
+        write_synthetic_gas_mechanism(gas, MODES_CMP_GAS)
+        write_synthetic_tot_mechanism(tot, *MP_CMP_MECH)
+        paths = {"nucleation": (Model, gas, NUC),
+                 "nucleation nkc_l=4": (Model, tot, NUC_MULTIPHASE),
+                 "box": (BoxModel, tot, BOX),
+                 "chamber": (BoxModel, gas, CHAMBER),
+                 "soil mic=F": (Model, gas, SOIL_MIC_F),
+                 "soil": (Model, gas, SOIL)}
+        for name, (make, mech, settings) in paths.items():
+            cfg = path_config(inpdir, mech, dict(settings, zinv=100.0),
+                              "float64", grid)
+            res, wall = {}, {}
+            for dev in (DEVICE, "cpu"):
+                t0 = time.perf_counter()
+                m = make(cfg, device=dev)
+                state = box_state(m, 2) if make is BoxModel \
+                    else midnight_and_noon(m)
+                for _ in range(MODE_MINUTES):
+                    state = m.minute_step(state)
+                check_state(state, f"{name} on {dev}")
+                wall[dev] = time.perf_counter() - t0
+                fields = [("t", state.met.t), ("xm1", state.met.xm1),
+                          ("ff", state.micro.ff), ("tb", state.surf.tb),
+                          ("eb", state.surf.eb)]
+                if state.chem is not None:
+                    fields += [("conc", state.chem.sgas),
+                               ("nonconv", state.chem.nonconv)]
+                res[dev] = {k: v.cpu().numpy() for k, v in fields}
+            ref, got = res["cpu"], res[DEVICE]
+            e = {}
+            for k, tol in MODES_DEVICE_TOL.items():
+                if k not in ref:
+                    continue
+                e[k] = rows_err(got[k], ref[k]) if k == "conc" else float(
+                    np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max())
+                check(e[k] <= tol, f"{name} {k}: card vs CPU {e[k]:.3e} > "
+                      f"{tol}")
+            check(np.array_equal(got.get("nonconv"), ref.get("nonconv")),
+                  f"{name}: nonconv card {got.get('nonconv')} cpu "
+                  f"{ref.get('nonconv')}")
+            log(f"{name} card vs cpu (2 columns, float64, {MODE_MINUTES} "
+                f"minutes, grid {MP_CMP_GRID}; card {wall[DEVICE]:.1f} s, "
+                f"cpu {wall['cpu']:.1f} s) max rel err: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                + f"; nonconv {ref.get('nonconv')}")
+            errs[name] = e
     return errs
 
 
@@ -1613,7 +1983,8 @@ def main() -> int:
     from mistra_tpu_torch.chemistry import lu_cuda
     kernels = timed("phase 2", phase_kernels, growth, bott_cuda)
     with tempfile.TemporaryDirectory(prefix="mistra_inp_") as tmp, \
-            tempfile.TemporaryDirectory(prefix="mistra_gas_") as gas_tmp:
+            tempfile.TemporaryDirectory(prefix="mistra_gas_") as gas_tmp, \
+            tempfile.TemporaryDirectory(prefix="mistra_tot_") as ttmp:
         inpdir = input_dir(tmp)
         gasdir, _ = gas_mechanism_dir(gas_tmp)
         counts, main = timed("phase 3", phase_main, inpdir, bott_cuda)
@@ -1631,11 +2002,10 @@ def main() -> int:
             timed("phase 8", phase_chem_t, inpdir, gasdir, bott_cuda,
                   lu_cuda)
         timed("phase 9", phase_chem_t_device_vs_cpu, inpdir, gasdir)
-        with tempfile.TemporaryDirectory(prefix="mistra_tot_") as ttmp:
-            totdir, _ = tot_mechanism_dir(ttmp)
-            mp_counts, mp_iterations, main["multiphase_minute"], mp_in, \
-                mp_bott_in = timed("phase 10", phase_multiphase, inpdir,
-                                   totdir, growth, bott_cuda, lu_cuda)
+        totdir, _ = tot_mechanism_dir(ttmp)
+        mp_counts, mp_iterations, main["multiphase_minute"], mp_in, \
+            mp_bott_in = timed("phase 10", phase_multiphase, inpdir, totdir,
+                               growth, bott_cuda, lu_cuda)
         check_spills(build.ptxas_log, [(m, dtype) for dtype, m in mp_in])
         lu_mp = timed("phase 10 (the inverse)", phase_lu_multiphase, mp_in)
         bott_mp = timed("phase 10 (Bott)", phase_bott_multiphase, growth,
@@ -1643,6 +2013,29 @@ def main() -> int:
         del mp_in, mp_bott_in
         main["multiphase_minute"]["card_vs_cpu"] = timed(
             "phase 11", phase_multiphase_device_vs_cpu, inpdir)
+        nuc_counts, main["nucleation_column"] = timed(
+            "phase 12", phase_nucleation, inpdir, gasdir, bott_cuda, lu_cuda,
+            main["chem_t_minute"])
+        box_counts, box_main, box_in = timed(
+            "phase 13", phase_box, inpdir, totdir, gasdir, bott_cuda,
+            lu_cuda)
+        main.update(box_minute=box_main["box"],
+                    chamber_minute=box_main["chamber"])
+        check_spills(build.ptxas_log, [(m, dtype) for dtype, m in box_in])
+        lu_box = timed("phase 13 (the inverse)", phase_lu_multiphase, box_in,
+                       "box")
+        del box_in
+        soil_counts, soil_main = timed("phase 14", phase_soil, inpdir,
+                                       gasdir, bott_cuda, lu_cuda)
+        main.update(soil_mic_f_minute=soil_main["soil mic=F"],
+                    soil_minute=soil_main["soil"])
+        main["modes_card_vs_cpu"] = timed(
+            "phase 15", phase_modes_device_vs_cpu, inpdir)
+    # each kernel's launches on the modes slice's paths (phases 12-14)
+    mode_counts = {"nucleation": nuc_counts, "box": box_counts["box"],
+                   "chamber": box_counts["chamber"],
+                   "soil_mic_f": soil_counts["soil mic=F"],
+                   "soil": soil_counts["soil"]}
 
     rows = []
     for name, line in (("bott_dwsum", 204), ("bott_advect", 173)):
@@ -1660,6 +2053,8 @@ def main() -> int:
                      "main_path_rows_ms": main["main_path_rows"][
                          name.replace("bott_", "") + "_ms"],
                      "multiphase_rows": bott_mp[name],
+                     **{f"launches_{p}": c[name]
+                        for p, c in mode_counts.items()},
                      **kernels[name]})
     # the main path's calls: float64 stage matrices, the aqueous blocks
     # and the Schur complement (one of each per Ros3 step attempt)
@@ -1705,6 +2100,18 @@ def main() -> int:
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             "shapes": [{k: r[k] for k in shape_keys}
                        for r in lu_mp.values()]},
+        **{f"launches_{p}": c["batched_inv"] for p, c in mode_counts.items()},
+        "box_minute": {
+            "launches_per_ros3_iteration":
+                box_counts["box"]["batched_inv"]
+                / main["box_minute"]["ros3_iterations"],
+            # the box's calls, one of each per Ros3 iteration of its tot
+            # solve at the box level: the aqueous blocks and the gas core
+            **{k: sum(r[k] for (_, _, kind), r in lu_box.items()
+                      if kind == "stage")
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "shapes": [{k: r[k] for k in shape_keys}
+                       for r in lu_box.values()]},
         "max_abs_err": max(r["max_abs_err"] for r in main_calls),
         **inv,
         "bound_by": "+".join(sorted({r["bound_by"] for r in main_calls})),

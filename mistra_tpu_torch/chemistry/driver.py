@@ -229,7 +229,9 @@ class ChemistryDriver:
         es = np.zeros(self.mech.nvar)
         for n in names:
             es[self.name2i[n]] = spec[n]["emission"]
-        self._es = t(es)
+        # ground emissions [molec/cm2/s] of the concentration field's
+        # species
+        self.conc_es = t(es)
         self._masks = t(self.masks)
         self._rq = t(self.model.grids.micro.rq)
 
@@ -341,20 +343,24 @@ class ChemistryDriver:
         return vg
 
     # ------------------------------------------------------------------
-    def sedc(self, chem: GasChemState, dt, deta1, detw1) -> GasChemState:
+    def sedc(self, chem, dt, deta1, detw1):
         """Surface dry deposition + ground emission (str.f90:2520-2535)."""
-        return chem.replace(sgas=surface_exchange(
-            chem.sgas, chem.vg, self._es, dt, deta1, detw1))
+        return chem.replace(**{self.conc_name: surface_exchange(
+            getattr(chem, self.conc_name), chem.vg, self.conc_es, dt, deta1,
+            detw1)})
 
     # the couplers to the particles: none without aqueous bins
     def konc(self, chem, ff_before, ff_after):
         return chem
 
-    def sea_salt_source(self, state, dt):
+    def sea_salt_source(self, state, dt, k_in=1, d_z=None):
         return state
 
     def sedl(self, state, dt):
         return state.chem
+
+    def box_dissolved_deposition(self, state, dt, n_bl, z_box):
+        return state
 
     def aerosol_mass_feedback(self, state, conc_before):
         return state
@@ -478,3 +484,8 @@ class ChemistryDriver:
         self.last_info = info
         failed = info["failed"].reshape(B, n - 2).sum(1, dtype=torch.int32)
         return chem.replace(sgas=sgas, nonconv=chem.nonconv + failed)
+
+    def integrate_box(self, state, dt, n_bl=1) -> GasChemState:
+        """Box/chamber mode: without aqueous bins the whole column is
+        solved, as the JAX package does (n_bl is not used)."""
+        return self.integrate_column(state, dt)

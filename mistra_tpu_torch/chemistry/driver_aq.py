@@ -40,7 +40,7 @@ from ..constants import PI
 from ..state import MultiphaseChemState
 from . import aqueous as aq
 from .activity import xgamma_field
-from .driver import ChemistryDriver, henry_molar, surface_exchange
+from .driver import ChemistryDriver, henry_molar
 from .gas_kernel import GasKernel
 from .mech import load_multiphase_mechanism
 from .rates import RateEnv
@@ -119,7 +119,7 @@ class MultiphaseDriver(ChemistryDriver):
         es = np.zeros(self.tot.nvar)
         for s in self.csv_in_mech:
             es[self.tot_n2i[s["name"]]] = s["emission"]
-        self._es_tot = torch.as_tensor(es, dtype=self.dtype,
+        self.conc_es = torch.as_tensor(es, dtype=self.dtype,
                                        device=self.device)
         sb = np.asarray(self.tot.species_bin)
         self._bin_idx = {kc: np.nonzero(sb == kc)[0]
@@ -173,15 +173,34 @@ class MultiphaseDriver(ChemistryDriver):
         vg[:, self._gas_idx] = vg_gas
         return vg
 
-    def sedc(self, chem, dt, deta1, detw1):
-        return chem.replace(conc=surface_exchange(
-            chem.conc, chem.vg, self._es_tot, dt, deta1, detw1))
-
-    def sea_salt_source(self, state, dt):
+    def sea_salt_source(self, state, dt, k_in=1, d_z=None):
         """aer_source (kpp.f90:3810-4063) when iaertyp = 3."""
         if self.model.cfg.iaertyp != 3:
             return state
-        return aer_source(self.model, state, dt)
+        return aer_source(self.model, state, dt, k_in=k_in, d_z=d_z)
+
+    def box_dissolved_deposition(self, state, dt, n_bl, z_box):
+        """Deposit the dissolved species of the box level n_bl with their
+        bins' particle deposition velocities into the ground layer
+        (box_partdep, str.f90:7070-7104)."""
+        micro = state.micro
+        ff = micro.ff[..., n_bl]
+        cw = self._cw_rc(state)[0][:, :, n_bl]                # [B, nkc]
+        rq3 = self._rq ** 3 * 1.0e-18
+        xx1 = torch.einsum("btk,btk,tkc->bc", micro.vd * rq3 * 1.0e6, ff,
+                           self._masks)
+        vdm = aq.per_lwc(xx1, cw)                             # [B, nkc]
+        sb = np.asarray(self.tot.species_bin)
+        kc_of = torch.as_tensor(np.maximum(sb, 1) - 1, device=vdm.device)
+        is_aq = torch.as_tensor(sb > 0, device=vdm.device)
+        depf = torch.where(is_aq, torch.exp(-dt / z_box * vdm[:, kc_of]),
+                           1.0)
+        s_old = state.chem.conc[:, :, n_bl]
+        s_new = s_old * depf
+        conc = state.chem.conc.clone()
+        conc[:, :, n_bl] = s_new
+        conc[:, :, 0] = conc[:, :, 0] + (s_old - s_new) * z_box
+        return state.replace(chem=state.chem.replace(conc=conc))
 
     # ------------------------------------------------------------------
     def _cw_rc(self, state):
@@ -470,6 +489,18 @@ class MultiphaseDriver(ChemistryDriver):
             state, conc, lp, torch.arange(1, gp.nf, device=dev), dt)
         conc = self._integrate_gas_above(
             state, conc, torch.arange(gp.nf, gp.n - 1, device=dev), dt)
+        return chem.replace(conc=conc, cloud=lp["cloud"],
+                            nonconv=chem.nonconv + nfail)
+
+    def integrate_box(self, state, dt, n_bl=1) -> MultiphaseChemState:
+        """Box/chamber mode: the tot mechanism at the single level n_bl of
+        every column (reference kpp_driver box branch,
+        kpp.f90:4440-4470)."""
+        chem = state.chem
+        conc = torch.clamp(chem.conc, min=0.0)
+        lp = self.liq_parm(state)
+        conc, nfail = self._integrate_tot(
+            state, conc, lp, torch.tensor([n_bl], device=conc.device), dt)
         return chem.replace(conc=conc, cloud=lp["cloud"],
                             nonconv=chem.nonconv + nfail)
 

@@ -1,13 +1,12 @@
 """Model assembly: the operator-splitting timestep schedule, in torch.
 
-Counterpart of ``mistra_tpu.model`` for the column step with mic=T and a
-water surface, with chemistry off (the BTZ96 configuration) or on, with
-the gas-phase driver (nkc_l=0) or the multiphase one (nkc_l>0).  The
-reference's two-level time loop (outer 1-minute steps, inner 6 x 10-s
-substeps; str.f90:324-535): ``substep`` applies the fast physics in the
-reference's fixed order and ``minute_step`` wraps six substeps between
+Counterpart of ``mistra_tpu.model``: every configuration the JAX ``Model``
+runs.  The reference's two-level time loop (outer 1-minute steps, inner 6
+x 10-s substeps; str.f90:324-535): ``substep`` applies the fast physics in
+the reference's fixed order and ``minute_step`` wraps six substeps between
 the once-per-minute clock, deposition, solar-geometry, radiation and
-photolysis updates.
+photolysis updates.  The box and chamber modes step through
+``boxmodel.BoxModel``, which owns a ``Model``.
 
 There is no jit: every step is eager Python over tensors of B columns on
 the model's device.  Initialisation runs on the host (numpy and torch on
@@ -21,19 +20,24 @@ the Mie files from ``cfg.inpdir`` (and raises without them), and
 ``model.radiation_enabled = False`` before ``init_state`` to run without
 it.
 
+mic=True runs the particle physics (difp, kon, sedp, equil above nf);
+mic=False holds the particles and keeps only the level nf-1 on the
+Koehler curve.  isurf=0 is the water surface (surf0), isurf=1 the bare
+soil (soil, then surf1).
+
 With chem=True the model runs, as the JAX package does, the gas-phase
-``chemistry.driver.ChemistryDriver`` (nkc_l=0) or the multiphase
-``chemistry.driver_aq.MultiphaseDriver`` (nkc_l>0: the tot mechanism
-below nf with the aqueous stack, the gas mechanism above) on
-``cfg.mechdir``'s mechanism and, with radiation on,
+``chemistry.driver.ChemistryDriver`` (nkc_l=0, or mic=False) or the
+multiphase ``chemistry.driver_aq.MultiphaseDriver`` (mic=True and
+nkc_l>0: the tot mechanism below nf with the aqueous stack, the gas
+mechanism above) on ``cfg.mechdir``'s mechanism and, with radiation on,
 ``photolysis.jrates.PhotolysisDriver`` on ``cfg.inpdir``'s ``photolys/``
 tables: ``difc`` after ``difm``; with the multiphase driver ``konc``
-after kon, the sea-salt source (iaertyp=3) after the surface and ``sedl``
-after ``sedc``; dry deposition, surface exchange, the optional Eulerian
-source (neula=0) and the stiff Ros3 solve after the surface, then (with
-the multiphase driver) the aerosol mass feedback; the J-rates at init
-and on even minutes when the sun is up.  Configurations outside the port
-(nucleation; mic=F, isurf=1, box and chamber modes) raise.
+after kon, the sea-salt source (iaertyp=3, not in chamber mode) after the
+surface and ``sedl`` after ``sedc``; dry deposition, surface exchange,
+the optional Eulerian source (neula=0) and the stiff Ros3 solve after the
+surface, then (with the multiphase driver) the aerosol mass feedback and
+(nuc=True) ``physics.nucleation.NucleationDriver``; the J-rates at init
+and on even minutes when the sun is up.
 """
 
 from __future__ import annotations
@@ -91,9 +95,7 @@ class Model:
     """Owns configuration, grids and tables; provides the step functions.
 
     Args:
-      cfg: the run configuration (mic=True, isurf=0, neither box nor
-        chamber mode, no nucleation; chem=False or chem=True, with the
-        gas-phase driver at nkc_l=0 and the multiphase one at nkc_l>0).
+      cfg: the run configuration, any that the JAX ``Model`` accepts.
       device: where the state and every step run: the card by default
         (raises on a host without one); "cpu" runs the plain versions.
       band: Bott walk band J (walks longer than J bins per substep are
@@ -104,12 +106,6 @@ class Model:
     def __init__(self, cfg: MistraConfig, device="cuda",
                  band: int = growth.BAND,
                  newton_iters: int = growth.NEWTON_ITERS):
-        unported = {"nuc=True": cfg.nuc, "mic=False": not cfg.mic,
-                     "isurf=1": cfg.isurf != 0, "box": cfg.box,
-                     "chamber": cfg.chamber}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"{name} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg)
@@ -124,6 +120,7 @@ class Model:
         self._radiation = None  # installed by init_state
         self._chemistry = None
         self._photolysis = None
+        self._nucleation = None
         self._const_tensors: dict = {}
         # grids and tables in the compute dtype, on the model's device
         self.atm = atm_tensors(self.grids.atm, self.dtype, self.device)
@@ -159,7 +156,7 @@ class Model:
             from .radiation.driver import RadiationDriver
             self._radiation = RadiationDriver(self)
         if cfg.chem and self._chemistry is None:
-            if cfg.nkc_l > 0:
+            if cfg.mic and cfg.nkc_l > 0:
                 from .chemistry.driver_aq import MultiphaseDriver
                 self._chemistry = MultiphaseDriver(self)
             else:
@@ -169,6 +166,10 @@ class Model:
                 and self._radiation is not None):
             from .photolysis.jrates import PhotolysisDriver
             self._photolysis = PhotolysisDriver(self, self._radiation)
+        if cfg.nuc and self._chemistry is not None \
+                and self._nucleation is None:
+            from .physics.nucleation import NucleationDriver
+            self._nucleation = NucleationDriver(self)
         atm = atm_tensors(self.grids.atm, self.dtype, cpu)
         turb = atk0(state.met, state.turb, state.surf, atm, cfg.ug, cfg.vg,
                     cfg.z0)
@@ -230,22 +231,28 @@ class Model:
             state = state.replace(chem=state.chem.replace(
                 **{field: out["c"].transpose(1, 2)}))
 
-        # particle diffusion, condensational growth, settling, then the
-        # levels above nf back onto the Koehler curve
-        micro = diffusion.difp(state.micro, state.met, state.turb, self.atm,
-                               dd)
-        state = state.replace(micro=micro)
-        ff_before_kon = state.micro.ff
-        state = growth.kon(self, state, dd)
-        # shift aqueous species between chemistry bins along with the
-        # particles that crossed the aerosol/droplet threshold (konc)
-        if chemistry is not None:
-            state = state.replace(chem=chemistry.konc(
-                state.chem, ff_before_kon, state.micro.ff))
-        state = sedimentation.sedp(self, state, dd)
-        met, micro = microphysics.equil(
-            state.met, state.micro, self.micro, a0m, self.b0m, ncase=2,
-            nf=cfg.grid.nf)
+        if cfg.mic:
+            # particle diffusion, condensational growth, settling, then the
+            # levels above nf back onto the Koehler curve
+            micro = diffusion.difp(state.micro, state.met, state.turb,
+                                   self.atm, dd)
+            state = state.replace(micro=micro)
+            ff_before_kon = state.micro.ff
+            state = growth.kon(self, state, dd)
+            # shift aqueous species between chemistry bins along with the
+            # particles that crossed the aerosol/droplet threshold (konc)
+            if chemistry is not None:
+                state = state.replace(chem=chemistry.konc(
+                    state.chem, ff_before_kon, state.micro.ff))
+            state = sedimentation.sedp(self, state, dd)
+            met, micro = microphysics.equil(
+                state.met, state.micro, self.micro, a0m, self.b0m, ncase=2,
+                nf=cfg.grid.nf)
+        else:
+            # non-mic runs keep the boundary-layer top level in equilibrium
+            met, micro = microphysics.equil(
+                state.met, state.micro, self.micro, a0m, self.b0m, ncase=1,
+                nf=cfg.grid.nf, level=cfg.grid.nf - 1)
         state = state.replace(met=met, micro=micro)
 
         # radiative heating of interior levels
@@ -255,16 +262,24 @@ class Model:
                       dim=1)
         state = state.replace(met=state.met.replace(t=t))
 
-        # surface boundary condition (water surface)
-        met, surf_state = surface.surf0(
-            self.clarke_dev, state.met, state.surf, self.atm.eta, dd,
-            rhsurf=cfg.rhsurf, ltwcst=cfg.ltwcst, ntwopt=cfg.ntwopt)
+        # surface boundary condition: water surface or bare soil
+        if cfg.isurf == 0:
+            met, surf_state = surface.surf0(
+                self.clarke_dev, state.met, state.surf, self.atm.eta, dd,
+                rhsurf=cfg.rhsurf, ltwcst=cfg.ltwcst, ntwopt=cfg.ntwopt)
+        else:
+            state = state.replace(surf=surface.soil(
+                state.surf, self.grids.soil, dd))
+            met, surf_state = surface.surf1(
+                self.clarke_dev, state.met, state.surf, state.rad, self.atm,
+                self.grids.soil, dd)
         state = state.replace(met=met, surf=surf_state)
 
         # chemistry: surface exchange then stiff integration
         if chemistry is not None:
             # sea-salt aerosol + ion source (aer_source, kpp.f90:3810-4063)
-            state = chemistry.sea_salt_source(state, dd)
+            if not cfg.chamber:
+                state = chemistry.sea_salt_source(state, dd)
             chem = state.chem.replace(vg=chemistry.gasdrydep(state))
             chem = chemistry.sedc(chem, dd, self.atm.deta[1],
                                   self.atm.detw[1])
@@ -280,6 +295,9 @@ class Model:
             # aerosol-mass feedback to the particle grid (stem_kpp,
             # str.f90:5975-6134)
             state = chemistry.aerosol_mass_feedback(state, conc_before)
+            # nucleation after chemistry (str.f90:397-405)
+            if self._nucleation is not None:
+                state, _ = self._nucleation(state, dd)
 
         tim = state.tim.replace(time=state.tim.time + dd)
         return state.replace(tim=tim)
@@ -295,7 +313,10 @@ class Model:
         state = state.replace(tim=state.tim.replace(lmin=lmin, lst=lst,
                                                     lday=lday))
 
-        # particle dry deposition velocities, once per minute
+        # particle dry deposition velocities, once per minute (frozen in
+        # chamber mode)
+        if self.cfg.chamber:
+            return state
         vd, xra = sedimentation.partdep(self, state)
         return state.replace(micro=state.micro.replace(vd=vd, xra=xra))
 

@@ -214,11 +214,10 @@ class RadiationDriver:
             c = dict(
                 x0=0.5 * detw[1:n - 1] / deta[1:n - 1],
                 t_up=t(self.t_up), p_up=t(self.p_up), xm1_up=t(self.xm1_up),
-                # the upper layers' background aerosol (the model layers'
-                # part is computed per call)
-                bea_up=t(self.bea_up[:, n - 1:]),
-                baa_up=t(self.baa_up[:, n - 1:]),
-                ga_up=t(self.ga_up[:, n - 1:]),
+                # the prescribed background aerosol of every layer: with
+                # mic=T the model layers' part is computed per call
+                bea_up=t(self.bea_up), baa_up=t(self.baa_up),
+                ga_up=t(self.ga_up),
                 rq2=t(self.model.grids.micro.rq) ** 2,
                 # absorption, extinction and the asymmetry numerator's
                 # weight, stacked for one contraction with the spectra
@@ -250,8 +249,12 @@ class RadiationDriver:
         rhox[:, nrlev - 1] = 0.0
         ts = met.t[:, 0]
 
-        # particle optics for model layers (levels 1..n-1 feed layers
-        # 0..n-2); the port runs mic=T only
+        # particle optics: the prescribed optics in every layer with mic=F;
+        # with mic=T the model layers' (levels 1..n-1 feed layers 0..n-2)
+        # from the spectrum
+        up = [c[k].expand(B, -1, -1) for k in ("bea_up", "baa_up", "ga_up")]
+        if not self.model.cfg.mic:
+            return (tx, px, rhox, xm1x, ts, *up)
         ff = state.micro.ff[..., 1:n]                     # [B, nkt, nka, n-1]
         x0p = math.pi * 1.0e-6 * c["rq2"][:, :, None] * ff
         sums = torch.einsum("qtk,btkz->bqz", c["q3"], x0p)
@@ -259,9 +262,8 @@ class RadiationDriver:
         sca = bea_low - baa_low
         ga_low = torch.where(sca > 0.0,
                              ga_num / torch.clamp(sca, min=1e-300), 0.0)
-        bea = torch.cat([bea_low, c["bea_up"].expand(B, -1, -1)], dim=2)
-        baa = torch.cat([baa_low, c["baa_up"].expand(B, -1, -1)], dim=2)
-        ga = torch.cat([ga_low, c["ga_up"].expand(B, -1, -1)], dim=2)
+        bea, baa, ga = (torch.cat([part, rest[..., n - 1:]], dim=2)
+                        for part, rest in zip((bea_low, baa_low, ga_low), up))
         return tx, px, rhox, xm1x, ts, bea, baa, ga
 
     # ------------------------------------------------------------------

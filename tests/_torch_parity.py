@@ -14,6 +14,8 @@ from a fixed seed.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ import torch
 import mistra_tpu_torch as pt
 from mistra_tpu.config import GridParams, MistraConfig
 from mistra_tpu.model import Model as JaxModel
+from mistra_tpu.model import solar_zenith
 from mistra_tpu.radiation.driver import RadiationDriver as JaxRadiation
 from mistra_tpu_torch.chemistry.mech import (write_synthetic_gas_mechanism,
                                              write_synthetic_tot_mechanism)
@@ -56,8 +59,51 @@ N_GAS_TOT = 12
 N_AQ_TOT = 25
 
 
+def jax_init(jm, radiation, chem):
+    """The JAX model's initial state, made as its ``init_state`` makes it
+    but with the radiation call (and, with chem, the photolysis call after
+    it) jitted: op by op the radiation call takes ~40 s on a CPU for the
+    same result (it reads only the state that the rest of the init has
+    made).  Installs the radiation and photolysis drivers in jm."""
+    jm.radiation_enabled = False
+    js = JaxModel.init_state(jm)
+    if radiation:
+        jm.radiation_enabled = True
+        jm._radiation = JaxRadiation(jm)
+        jm._radiation.build_static(js)
+        js = jax.jit(jm._radiation)(js)
+    if radiation and chem:
+        from mistra_tpu.photolysis.jrates import PhotolysisDriver
+        jm._photolysis = PhotolysisDriver(jm, jm._radiation)
+        pj = jnp.where(js.rad.u0 > jm._chemistry.u0min,
+                       jax.jit(jm._photolysis)(js), 0.0)
+        js = js.replace(chem=js.chem.replace(photol_j=pj))
+    return js
+
+
+def configs(inpdir, dtype="float64", radiation=False, mechdir=None,
+            multiphase=False, n_gas=N_GAS, **cfg):
+    """(JAX config, port config) on the tiny grid, with the input tables
+    (and with mechdir the mechanism) written as ``make_models`` says."""
+    write_synthetic_clarke_table(inpdir)
+    if radiation:
+        write_synthetic_radiation_tables(inpdir)
+    kw = dict(BTZ96, dtype=dtype, inpdir=str(inpdir), **cfg)
+    if mechdir is not None:
+        write_synthetic_photolysis_tables(inpdir)
+        if multiphase:
+            write_synthetic_tot_mechanism(mechdir, N_GAS_TOT, N_AQ_TOT)
+        else:
+            write_synthetic_gas_mechanism(mechdir, n_gas)
+        kw = dict(kw, chem=True, nkc_l=4 if multiphase else 0,
+                  mechdir=str(mechdir))
+        kw.update(cfg)
+    return (MistraConfig(grid=GridParams(**TINY_GRID), **kw),
+            pt.MistraConfig(grid=pt.GridParams(**TINY_GRID), **kw))
+
+
 def make_models(inpdir, dtype="float64", radiation=False, mechdir=None,
-                multiphase=False, **cfg):
+                multiphase=False, n_gas=N_GAS, **cfg):
     """(JAX model, port model, JAX initial state) on the tiny grid, with
     radiation on in both or in neither.
 
@@ -71,41 +117,42 @@ def make_models(inpdir, dtype="float64", radiation=False, mechdir=None,
     the multiphase chemistry (chem=True, nkc_l=4) of the small synthetic
     tot mechanism, and photolysis on the synthetic tables written to
     inpdir; the JAX init's photolysis call is jitted too, after its
-    radiation call, as the JAX init orders them.  Further keywords go
-    into both configurations.
+    radiation call, as the JAX init orders them.  n_gas is the gas
+    stand-in's number of gas species (41 or more include OIO).  Further
+    keywords go into both configurations.
     """
-    write_synthetic_clarke_table(inpdir)
-    if radiation:
-        write_synthetic_radiation_tables(inpdir)
-    kw = dict(BTZ96, dtype=dtype, inpdir=str(inpdir), **cfg)
-    if mechdir is not None:
-        write_synthetic_photolysis_tables(inpdir)
-        if multiphase:
-            write_synthetic_tot_mechanism(mechdir, N_GAS_TOT, N_AQ_TOT)
-        else:
-            write_synthetic_gas_mechanism(mechdir, N_GAS)
-        kw = dict(kw, chem=True, nkc_l=4 if multiphase else 0,
-                  mechdir=str(mechdir))
-        kw.update(cfg)
-    jm = JaxModel(MistraConfig(grid=GridParams(**TINY_GRID), **kw))
-    jm.radiation_enabled = False
-    js = jm.init_state()
-    if radiation:
-        jm.radiation_enabled = True
-        jm._radiation = JaxRadiation(jm)
-        jm._radiation.build_static(js)
-        js = jax.jit(jm._radiation)(js)
-    if radiation and mechdir is not None:
-        from mistra_tpu.photolysis.jrates import PhotolysisDriver
-        jm._photolysis = PhotolysisDriver(jm, jm._radiation)
-        pj = jnp.where(js.rad.u0 > jm._chemistry.u0min,
-                       jax.jit(jm._photolysis)(js), 0.0)
-        js = js.replace(chem=js.chem.replace(photol_j=pj))
-    tm = pt.Model(pt.MistraConfig(grid=pt.GridParams(**TINY_GRID), **kw),
-                  device="cpu")
+    jcfg, tcfg = configs(inpdir, dtype, radiation, mechdir, multiphase,
+                         n_gas, **cfg)
+    jm = JaxModel(jcfg)
+    js = jax_init(jm, radiation, mechdir is not None)
+    tm = pt.Model(tcfg, device="cpu")
     tm.radiation_enabled = radiation
     tm.set_consts(jm.consts)
     return jm, tm, js
+
+
+def make_box_models(inpdir, mechdir, multiphase=False, n_gas=N_GAS, **cfg):
+    """(JAX BoxModel, port BoxModel, JAX initial box state) on the tiny
+    grid with radiation and photolysis on and the chemistry of
+    ``make_models``; the JAX box's column init is ``jax_init``.  In
+    chamber mode the synthetic chamber.dat goes into inpdir/photolys: the
+    JAX config names that directory in its ``cinpdir_phot`` attribute,
+    the port finds it there by default."""
+    from mistra_tpu.boxmodel import BoxModel as JaxBoxModel
+    from mistra_tpu_torch.boxmodel import write_synthetic_chamber_dat
+    jcfg, tcfg = configs(inpdir, "float64", True, mechdir, multiphase,
+                         n_gas, **cfg)
+    if jcfg.chamber:
+        phot = f"{inpdir}/photolys"
+        write_synthetic_chamber_dat(phot)
+        jcfg.cinpdir_phot = phot
+    jbm = JaxBoxModel(jcfg)
+    jm = jbm.model
+    jm.init_state = lambda: jax_init(jm, True, True)
+    jbs = jbm.init_state()
+    tbm = pt.BoxModel(tcfg, device="cpu")
+    tbm.model.set_consts(jm.consts)
+    return jbm, tbm, jbs
 
 
 def to_numpy(js):
@@ -250,3 +297,92 @@ def assert_state_close(js, ts, tol):
         assert_substate_close(getattr(js, sub), getattr(ts, sub), tol, sub)
     if getattr(js, "chem", None) is not None or ts.chem is not None:
         assert_chem_close(js.chem, ts.chem, tol)
+
+
+def at_noon(jm, js):
+    """js at 12:00 local solar time with its u0 and, with photolysis, the
+    J-rates the init would make."""
+    tim = js.tim.replace(lst=jnp.int32(12))
+    u0 = solar_zenith(tim.lst, tim.lmin, jm.astro.alat, jm.astro.declin)
+    s = js.replace(tim=tim, rad=js.rad.replace(u0=u0))
+    if jm._photolysis is None:
+        return s
+    pj = jnp.where(u0 > jm._chemistry.u0min, jax.jit(jm._photolysis)(s),
+                   0.0)
+    return s.replace(chem=s.chem.replace(photol_j=pj))
+
+
+def step_both(jm, tm, js, minutes=2, tol=1e-6):
+    """The port's batch of a noon and a midnight column and the two JAX
+    states, each stepped ``minutes`` jitted JAX minutes and the port's
+    batch as many port minutes; returns (JAX states, port start, port
+    end) after checking every column against its JAX state within tol.
+    In float64 each module matches JAX to 1e-10, and over whole minutes
+    subkon's Newton exit test can flip within rounding and move the
+    fields by up to ~1e-6 of their scale (test_torch_chem_slice.py)."""
+    step = jax.jit(jm.minute_step)
+    states = [at_noon(jm, js), js]
+    ts0 = to_port_columns(states)
+    ts = ts0
+    for _ in range(minutes):
+        states = [step(s) for s in states]
+        ts = tm.minute_step(ts)
+    for c, s in enumerate(states):
+        assert_state_close(to_numpy(s), ts.map(lambda x: x[c:c + 1]), tol)
+    return states, ts0, ts
+
+
+@contextlib.contextmanager
+def ros3_steps(*kernels):
+    """Collects the Ros3 steps per cell of every integrate call of the
+    kernels (JAX or port) into a list, one array per call: inside a
+    jitted JAX function through a debug callback."""
+    seen = []
+    saved = [k.integrate for k in kernels]
+
+    def spying(f):
+        def spy(*a, **kw):
+            y, info = f(*a, **kw)
+            if isinstance(info["nsteps"], torch.Tensor):
+                seen.append(info["nsteps"].numpy().copy())
+            else:
+                jax.debug.callback(lambda x: seen.append(np.asarray(x)),
+                                   info["nsteps"])
+            return y, info
+        return spy
+
+    for k, f in zip(kernels, saved):
+        k.integrate = spying(f)
+    try:
+        yield seen
+    finally:
+        for k, f in zip(kernels, saved):
+            k.integrate = f
+
+
+def step_minutes(jbm, tbm, states, ts, jkern, tkern, minutes=2, tol=1e-6):
+    """Steps each JAX state and the port's batch ``minutes`` minutes;
+    checks every field and the Ros3 steps of every substep; returns the
+    port's state."""
+    step = jax.jit(jbm.minute_step)
+    with ros3_steps(tkern) as tsteps:
+        for _ in range(minutes):
+            ts = tbm.minute_step(ts)
+    # one spy for every JAX call: the compiled minute keeps the callback
+    # of its first trace
+    with ros3_steps(jkern) as jsteps:
+        wants = []
+        for s in states:
+            for _ in range(minutes):
+                s = step(s)
+            wants.append(s)
+        jax.effects_barrier()
+    calls = 6 * minutes
+    assert len(tsteps) == calls and len(jsteps) == calls * len(states)
+    cells = tsteps[0].shape[0] // len(states)
+    for c, s in enumerate(wants):
+        assert_state_close(to_numpy(s), ts.map(lambda x: x[c:c + 1]),
+                           tol)
+        for j, t in zip(jsteps[c * calls:(c + 1) * calls], tsteps):
+            assert np.array_equal(j, t[c * cells:(c + 1) * cells])
+    return ts

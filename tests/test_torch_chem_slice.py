@@ -1,8 +1,8 @@
 """The chem=T column minute of the PyTorch port (mic=T, nkc_l=0, water
 surface, PIFM2 radiation and photolysis on, neula=0) against the JAX
 package's jitted ``minute_step``, tiny grid, the synthetic tables and the
-small synthetic gas mechanism; and the configurations the port still
-refuses."""
+small synthetic gas mechanism; and the configurations the port refused
+until its modes slice."""
 
 from __future__ import annotations
 
@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (B, BTZ96, N_GAS, TINY_GRID, assert_state_close,
-                           make_models, to_numpy, to_port_columns)
+from _torch_parity import (B, BTZ96, N_AQ_TOT, N_GAS, N_GAS_TOT, TINY_GRID,
+                           assert_state_close, make_models, to_numpy,
+                           to_port_columns)
 
 import mistra_tpu_torch as pt
 from mistra_tpu.model import solar_zenith
-from mistra_tpu_torch.chemistry.mech import write_synthetic_gas_mechanism
+from mistra_tpu_torch.boxmodel import write_synthetic_chamber_dat
+from mistra_tpu_torch.chemistry.mech import (write_synthetic_gas_mechanism,
+                                             write_synthetic_tot_mechanism)
 from mistra_tpu_torch.photolysis.tables import \
     write_synthetic_photolysis_tables
 from mistra_tpu_torch.physics.surface import write_synthetic_clarke_table
@@ -129,12 +132,36 @@ def test_float32_chem_minute_stays_float32(tmp_path):
     dict(chem=True, nkc_l=4, nuc=True), dict(chem=True, nkc_l=0, nuc=True),
     dict(mic=False), dict(isurf=1), dict(box=True), dict(chamber=True)])
 def test_model_refuses_the_unported_configurations(tmp_path, refused):
-    """Nucleation (with the multiphase or the gas-phase driver), mic=F,
-    the soil surface, box and chamber modes are not ported: Model raises
-    instead of running something else."""
+    """The configurations the port refused until its modes slice, nucleation
+    (with the multiphase or the gas-phase driver), mic=F, the soil surface,
+    box and chamber modes, are refused no more: each builds, and its
+    ``init_state`` installs the drivers that JAX's would (the whole minutes
+    of each are held against JAX in test_torch_modes_slice.py,
+    test_torch_nucleation.py, test_torch_boxmodel.py and
+    test_torch_chamber.py)."""
     write_synthetic_clarke_table(tmp_path)
+    write_synthetic_radiation_tables(tmp_path)
+    write_synthetic_photolysis_tables(tmp_path)
+    if refused.get("nkc_l"):
+        write_synthetic_tot_mechanism(tmp_path, N_GAS_TOT, N_AQ_TOT)
+    else:
+        write_synthetic_gas_mechanism(tmp_path, N_GAS)
+    (tmp_path / "photolys").mkdir(exist_ok=True)
+    write_synthetic_chamber_dat(tmp_path / "photolys")
     cfg = pt.MistraConfig(grid=pt.GridParams(**TINY_GRID),
-                          inpdir=str(tmp_path),
+                          inpdir=str(tmp_path), mechdir=str(tmp_path),
                           **dict(BTZ96, **refused))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pt.Model(cfg, device="cpu")
+    if cfg.box or cfg.chamber:
+        box = pt.BoxModel(cfg, device="cpu")
+        model, state = box.model, box.init_state(1)
+    else:
+        model = pt.Model(cfg, device="cpu")
+        state = model.init_state(1)
+    assert model.cfg is cfg and model.device == torch.device("cpu")
+    assert (model._nucleation is not None) == cfg.nuc
+    if cfg.chem:
+        driver = {0: "ChemistryDriver", 4: "MultiphaseDriver"}[cfg.nkc_l]
+        assert type(model._chemistry).__name__ == driver
+    else:
+        assert model._chemistry is None
+    assert torch.isfinite(state.met.t).all()

@@ -2,7 +2,8 @@
 has no JAX.  A fresh interpreter imports the port's package, its
 radiation driver, its chemistry kernel, its photolysis driver, its
 gas-phase and multiphase chemistry drivers, the aqueous stack beneath
-them and the stiff-cell report, and finds no jax module."""
+them, the stiff-cell report, the soil surface, nucleation and the box
+and chamber modes, and finds no jax module."""
 
 from __future__ import annotations
 
@@ -25,7 +26,10 @@ ROOT = Path(__file__).resolve().parent.parent
     "mistra_tpu_torch.chemistry.aqueous",
     "mistra_tpu_torch.chemistry.activity",
     "mistra_tpu_torch.chemistry.sources",
-    "mistra_tpu_torch.chemistry.stiff_cells"])
+    "mistra_tpu_torch.chemistry.stiff_cells",
+    "mistra_tpu_torch.physics.surface",
+    "mistra_tpu_torch.physics.nucleation",
+    "mistra_tpu_torch.boxmodel"])
 def test_port_imports_no_jax(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

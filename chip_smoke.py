@@ -50,11 +50,14 @@ Phases (any failure exits non-zero):
      the even one), with every kernel's launch counter read around them;
      the photolysis call alone; one more minute under torch.profiler;
   9. the chem=T port on the card against the port on the CPU: two columns
-     (00:00, 12:00), float64, two minutes, the chemistry fields included;
-     then photolysis alone, card against CPU, float64 and float32;
+     (00:00, 12:00), float64, two minutes, the chemistry fields included,
+     at the production grid cut in depth (nf=50, n_extra=25, nka=nkt=70,
+     the inversion at 400 m: the CPU side took 257 s at full depth on a
+     slow host); then photolysis alone, card against CPU, float64 and
+     float32;
  10. multiphase minute: the settings of benchmarks/smoke_tot_full.py:51-54
      (BTZ96 with chem=True, nkc_l=4, halo=True, iod=False; float32 state,
-     the tot solve in float64) at the production grid for 32 columns, half
+     the tot solve in float64) at the production grid for 16 columns, half
      at 00:00 and half at 12:00, two minutes with every kernel's launch
      counter read around them; liq_parm alone; the inverse at the path's
      own shapes and dtypes (the tot solve's aqueous blocks and gas core in
@@ -92,7 +95,25 @@ Phases (any failure exits non-zero):
      (nkc_l=4, napari and lovejoy, ifeed=0): two columns (a midnight and a
      noon column; chambers across the lights' edge), float64, two minutes,
      the tiny grid of phase 11 with the small tot stand-in and a small gas
-     stand-in that holds OIO (45 gas species).
+     stand-in that holds OIO (45 gas species);
+ 16. the run harness: python -m mistra_tpu_torch in a subprocess of this
+     script, one column at the production grid, each run started from a
+     checkpoint of its namelist's initial state with the clock's minute
+     set: (a) BTZ96 in float32 from 11:31 for 31 minutes (the initial
+     record with the 2-D spectrum, the 15-minute snapshot, the 12:00
+     profiles and checkpoint, the 30-minute snapshot with the 2-D
+     spectrum, the first one timed in a warm run); (b) 2 minutes from
+     (a)'s 12:00 checkpoint,
+     within 1e-6 of (a)'s end (and whether bit-equal); (c) the multiphase
+     settings of phase 10 with binout from 11:59 for 2 minutes (mass.out,
+     profc.out, the chemistry output, the budgets defined); (d) (a)'s
+     settings for 4 minutes with --profile, whose trace must hold
+     bott_dwsum_kernel events.  Every output file present and finite;
+     each run's kernel launches as the CLI counts them (dwsum and advect
+     in (a), all three in (c)), its seconds per minute and host ms per
+     snapshot (the initial record, with its first-call set-up; with the
+     2-D spectrum ff; without) and per checkpoint, the writer it took and
+     whether the host has libnetcdf.
 
 The input tables of phases 3-4b and 8-9 are the reference's where $INPDIR
 holds them (clarke.dat; pifm2_171115.dat with the six Mie files;
@@ -231,16 +252,22 @@ PHOT_REPS = 3
 # minutes: 1e-2.  photol_j, relative to each slot's largest value: the
 # J-rates of minute 2 are computed from states that differ by ~1e-6 in t
 # and ~1e-5 in ff (the aerosol optics), a smooth map: 1e-4
+# phase 9's grid: the production grid's widths (nka, nkt, the bands and
+# species) at half its depth, the inversion at half its height, inside the
+# cut grid's constant-dz layers
+CHEM_T_CMP_GRID = dict(nf=50, n_extra=25)
+CHEM_T_CMP_ZINV = 400.0
 CHEM_T_DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "sgas": 1e-2,
                      "photol_j": 1e-4}
 # multiphase minute (phases 10-11): the settings of
 # benchmarks/smoke_tot_full.py:51-54; the state in float32 and, by
 # chem_f64's default, the tot solve in float64
 MULTIPHASE = dict(BTZ96, chem=True, nkc_l=4, halo=True, iod=False)
-# 32, not 64: with 64 the whole script took 990.8 s of command time on an
-# H100 80GB HBM3 at 700 W, the multiphase minute being device-bound (84 %
-# busy: 32 columns take about half its time)
-MP_COLUMNS = 32
+# 16: with 64 the whole script took 990.8 s of command time on an H100
+# 80GB HBM3 at 700 W, the multiphase minute being device-bound (84 % busy:
+# 32 columns take about half its time); with 32 it took 927.7 s, and the
+# run harness (phase 16) takes ~105 s more; with 16 the script took 947.1 s
+MP_COLUMNS = 16
 MP_MINUTES = 2
 LIQ_PARM_REPS = 3
 # the reference's tot mechanism files, which $MECHDIR may hold
@@ -303,6 +330,32 @@ NUC_MULTIPHASE = dict(MULTIPHASE, nuc=True)
 # eb as t (the same surface balance on states that differ by ~1e-6)
 MODES_DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "tb": 1e-6,
                     "eb": 1e-6, "conc": 1e-2}
+
+# phase 16: the run harness (python -m mistra_tpu_torch) on the card, one
+# column at the production grid.  The configuration has no start minute
+# (only nhour), so each run starts from a checkpoint of the initial state
+# with its clock's minute set (--restart), as a user restarts a run.
+# (a) BTZ96 in float32 from 11:31 for 31 minutes: the initial record with
+# the 2-D spectrum, the 15-minute snapshot, the 12:00 profiles and
+# checkpoint, the 30-minute snapshot with the 2-D spectrum (a snapshot
+# with ff in the warm loop: the initial record's time holds the first
+# calls' set-up); (b) 2 minutes from (a)'s 12:00 checkpoint, which must end
+# where (a) ends, each field within CLI_RESTART_TOL of its scale (the same
+# kernels on the same inputs: bit-equal is expected); (c) the multiphase
+# chem=T settings (phase 10's) with binout from 11:59 for 2 minutes across
+# the hour: mass.out, profc.out, the chemistry output and the budgets
+# defined; (d) (a)'s settings for 4 minutes with --profile (minutes 2-4)
+CLI_NHOUR = 11
+CLI_START_MINUTE = 31
+CLI_MINUTES = 31
+CLI_RESTART_MINUTES = 2
+CLI_CHEM_START_MINUTE = 59
+CLI_CHEM_MINUTES = 2
+CLI_PROFILE_MINUTES = 4
+CLI_RESTART_TOL = 1e-6
+CLI_TIMEOUT_S = 600
+# --grid of the runs: None is the production grid
+CLI_GRID = None
 
 
 def log(msg: str) -> None:
@@ -1323,10 +1376,18 @@ def rows_err(got, ref):
 
 def phase_chem_t_device_vs_cpu(inpdir, mechdir):
     """The chem=T port on the card (kernels) against the port on the CPU
-    (plain versions): a midnight and a noon column, float64, two minutes;
-    then photolysis alone on the same inputs, float64 and float32."""
-    from mistra_tpu_torch import Model
-    cfg = chem_t_config(inpdir, mechdir, "float64")
+    (plain versions): a midnight and a noon column, float64, two minutes,
+    CHEM_T_CMP_GRID's depth; then photolysis alone on the same inputs,
+    float64 and float32."""
+    from mistra_tpu_torch import GridParams, Model
+
+    def config(dtype):
+        cfg = chem_t_config(inpdir, mechdir, dtype)
+        if GRID is None:
+            cfg.grid = GridParams(**CHEM_T_CMP_GRID)
+            cfg.zinv = CHEM_T_CMP_ZINV
+        return cfg
+    cfg = config("float64")
     out, models, wall = {}, {}, {}
     for dev in (DEVICE, "cpu"):
         t0 = time.perf_counter()
@@ -1357,8 +1418,9 @@ def phase_chem_t_device_vs_cpu(inpdir, mechdir):
         check(errs[k] <= tol, f"chem=T {k}: card vs CPU {errs[k]:.3e} > "
               f"{tol}")
     log(f"chem=T card vs cpu (2 columns at 00:00 and 12:00, float64, "
-        f"{CHEM_T_MINUTES} minutes; card {wall[DEVICE]:.1f} s, cpu "
-        f"{wall['cpu']:.1f} s) max rel err: "
+        f"nf={cfg.grid.nf} n={cfg.grid.n} nka={cfg.grid.nka} "
+        f"nkt={cfg.grid.nkt}, {CHEM_T_MINUTES} minutes; card "
+        f"{wall[DEVICE]:.1f} s, cpu {wall['cpu']:.1f} s) max rel err: "
         + ", ".join(f"{k} {v:.3e} (tol {CHEM_T_DEVICE_TOL[k]})"
                     for k, v in errs.items())
         + f"; nonconv card {got['nonconv'].tolist()} cpu "
@@ -1372,8 +1434,7 @@ def phase_chem_t_device_vs_cpu(inpdir, mechdir):
         for dev in (DEVICE, "cpu"):
             model = models[dev]
             if dtype != torch.float64:
-                model = Model(chem_t_config(inpdir, mechdir, name),
-                              device=dev)
+                model = Model(config(name), device=dev)
                 model.init_state(1)
             st = last.map(lambda x: x.to(dev, dtype)
                           if x.is_floating_point() else x.to(dev))
@@ -1887,6 +1948,242 @@ def phase_modes_device_vs_cpu(inpdir):
     return errs
 
 
+def cli_namelist(path, inpdir, settings, **extra) -> str:
+    """A namelist of settings (a dict of config fields) with inpdir."""
+    def value(v):
+        if isinstance(v, bool):
+            return ".true." if v else ".false."
+        return f"'{v}'" if isinstance(v, str) else repr(v)
+    items = dict(settings, inpdir=inpdir, **extra)
+    body = ",\n".join(f"  {k} = {value(v)}" for k, v in items.items())
+    Path(path).write_text(f"&mistra_cfg\n{body}\n/\n")
+    return str(path)
+
+
+def cli_config(nml):
+    """The configuration the CLI runs for the namelist nml."""
+    from mistra_tpu_torch import config_from_namelist
+    from mistra_tpu_torch.cli import override_grid
+    cfg = config_from_namelist(nml)
+    if CLI_GRID:
+        override_grid(cfg, CLI_GRID)
+    return cfg
+
+
+def cli_start(nml, minute, path):
+    """A checkpoint of the namelist's initial state (one column, on the
+    card) with the clock's minute set: the runs' start."""
+    from mistra_tpu_torch import Model
+    from mistra_tpu_torch.io.checkpoint import save_checkpoint
+    state = Model(cli_config(nml), device=DEVICE).init_state(1)
+    tim = state.tim.replace(lmin=torch.full_like(state.tim.lmin, minute))
+    return save_checkpoint(path, state.replace(tim=tim))
+
+
+def run_cli(what, args):
+    """python -m mistra_tpu_torch args in a subprocess of this script:
+    (its output, wall s, {timing and launches from its report})."""
+    cmd = [sys.executable, "-m", "mistra_tpu_torch", *args]
+    if CLI_GRID:
+        cmd += ["--grid", CLI_GRID]
+    if DEVICE == "cpu":
+        cmd += ["--platform", "cpu"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"CLI {what} failed ({out.returncode}):\n"
+          f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    rep = {"wall_s": wall}
+    for line in out.stdout.splitlines():
+        if line.startswith("run report: "):
+            rep.update(json.loads(line[len("run report: "):]))
+        elif line.startswith("writer: "):
+            rep["writer"] = line[len("writer: "):]
+    check("kernel_launches" in rep,
+          f"CLI {what}: no report in\n{out.stdout[-3000:]}")
+    rep["launches"] = rep.pop("kernel_launches")
+    log(f"cli {what}: {rep}")
+    return out.stdout, rep
+
+
+def finite_text(path):
+    text = Path(path).read_text()
+    check(text.strip() != "", f"{path} is empty")
+    low = text.lower()
+    check("nan" not in low and "inf" not in low, f"{path}: not finite")
+    return text
+
+
+def check_cli_outputs(outdir, cfg, chem, hourly=True):
+    """Every output file of a CLI run present and finite: the netCDF
+    files (the numpy groups where the run took that writer), tima.out,
+    the hourly profiles (where the run crossed an hour), the checkpoints
+    and aerosol_final.npy; returns the number of 15-minute records."""
+    from mistra_tpu_torch.io import netcdf as ncio
+    from mistra_tpu_torch.io.output import read_output
+    out = Path(outdir)
+    g = cfg.grid
+    files = ["tima.out", "restart.pt"]
+    if hourly:
+        files += ["profm.out", "profr.out"]
+        files += ["mass.out", "profc.out"] if chem else []
+    files += [] if chem else ["aerosol_final.npy"]
+    for f in files:
+        check((out / f).exists(), f"CLI output {f} missing in {outdir}")
+    for f in files:
+        if f.endswith(".out"):
+            finite_text(out / f)
+    for ck in out.glob("restart*.pt"):
+        for k, v in torch.load(ck, weights_only=True)["fields"].items():
+            check(not v.is_floating_point() or bool(torch.isfinite(v).all()),
+                  f"{ck.name}: non-finite {k}")
+    if not chem:
+        check(bool(np.isfinite(np.load(out / "aerosol_final.npy")).all()),
+              "aerosol_final.npy not finite")
+    checked = []
+    if (out / "meteo.nc").exists():
+        r = ncio.NcReader(str(out / "meteo.nc"))
+        records = r.dimlen("time")
+        r.close()
+        shapes = {
+            "meteo.nc": {"t": ("T", g.n), "xm1": ("T", g.n),
+                         "dtrad": ("T", g.n), "time": ("T",)},
+            "mic.nc": {"fsum": ("T", g.n),
+                       "part1D": ("T", g.nka - 1, g.nf)},
+            "part.nc": {"ff": ("T", g.nkt, g.nka, g.n)}}
+        if chem:
+            nspec = len(finite_text(out / "species.txt").split())
+            nch = len(finite_text(out / "s_channels.txt").splitlines())
+            shapes.update({
+                "chem.nc": {"conc": ("T", nspec, g.n)},
+                "jrat.nc": {"photol_j": ("T", ncio.NPHRXN, g.n)},
+                "rxn.nc": {"level_index": (len(ncio.budget_levels(cfg)),),
+                           "s_channel_rxn": (nch,)}})
+        for name, vs in shapes.items():
+            r = ncio.NcReader(str(out / name))
+            for k, shape in vs.items():
+                T = r.dimlen("time") if "T" in shape else 0
+                check("T" not in shape or T > 0, f"{name}: no record")
+                a = r.get(k, tuple(T if d == "T" else d for d in shape))
+                check(bool(np.isfinite(a).all()), f"{name}:{k} not finite")
+                checked.append(f"{name}:{k}{list(a.shape)}")
+            r.close()
+    else:
+        groups = read_output(str(out / "output"))
+        records = len(groups["met"]["time"])
+        want = {"grid", "met", "mic"} | ({"chem_gas", "jrate", "rxn"}
+                                         if chem else set())
+        check(want <= set(groups), f"numpy groups {sorted(groups)}")
+        for gname, ds in groups.items():
+            for k, a in ds.items():
+                if a.dtype.kind in "fi":
+                    check(bool(np.isfinite(a).all()),
+                          f"{gname}/{k} not finite")
+                    checked.append(f"{gname}/{k}{list(a.shape)}")
+    log(f"cli outputs of {outdir}: {len(files)} files and "
+        f"{len(checked)} datasets present and finite, {records} records: "
+        f"{checked}")
+    return records
+
+
+def phase_cli(inpdir, totdir):
+    """The run harness on the card: runs (a)-(d) of CLI_* above, each
+    ``python -m mistra_tpu_torch`` in a subprocess; every output present
+    and finite, the restart run within CLI_RESTART_TOL of the run in one
+    piece, each run's kernel launches as the CLI counted them (dwsum,
+    advect and, with chemistry, the inverse launched), its seconds per
+    minute and host ms per snapshot and per checkpoint, the writer taken
+    and the profiler trace's dwsum events."""
+    from mistra_tpu_torch.io import netcdf as ncio
+    res = {"libnetcdf": ncio.available(),
+           "netcdf_unavailable": ncio.unavailable_reason()}
+    log(f"cli: native netCDF writer available on this host: "
+        f"{res['libnetcdf']} {res['netcdf_unavailable']}")
+    with tempfile.TemporaryDirectory(prefix="mistra_cli_") as tmp:
+        d = Path(tmp)
+        nml = cli_namelist(d / "btz96.nml", inpdir,
+                           dict(BTZ96, dtype="float32"), nhour=CLI_NHOUR)
+        cfg = cli_config(nml)
+        start = cli_start(nml, CLI_START_MINUTE, str(d / "start.pt"))
+        # (a) from 11:31 for 31 minutes
+        _, res["a"] = run_cli("(a) BTZ96 31 minutes", [
+            "--namelist", nml, "--outdir", str(d / "a"), "--restart", start,
+            "--minutes", str(CLI_MINUTES)])
+        check(check_cli_outputs(d / "a", cfg, chem=False) == 3,
+              "(a): the initial record and the 15- and 30-minute "
+              "snapshots expected")
+        check(res["a"]["snapshots_ff"] == 1 == res["a"]["snapshots_no_ff"],
+              f"(a): one snapshot with ff and one without expected: "
+              f"{res['a']}")
+        noon = d / "a" / f"restart_day0_{CLI_NHOUR + 1:02d}h.pt"
+        check(noon.exists(), f"no 12:00 checkpoint {noon}")
+        check(finite_text(d / "a" / "profm.out").count("# day") == 1,
+              "one hourly profile block expected")
+        for k in ("bott_dwsum", "bott_advect"):
+            check(res["a"]["launches"][k] > 0, f"(a): {k} not launched")
+        # (b) 2 minutes from (a)'s 12:00 checkpoint
+        _, res["b"] = run_cli("(b) restart 2 minutes", [
+            "--namelist", nml, "--outdir", str(d / "b"), "--restart",
+            str(noon), "--minutes", str(CLI_RESTART_MINUTES)])
+        check_cli_outputs(d / "b", cfg, chem=False, hourly=False)
+        whole = torch.load(d / "a" / "restart.pt", weights_only=True)
+        split = torch.load(d / "b" / "restart.pt", weights_only=True)
+        check(whole["fields"].keys() == split["fields"].keys(),
+              "restart: field sets differ")
+        worst, equal = 0.0, True
+        for k, a in whole["fields"].items():
+            b = split["fields"][k]
+            equal = equal and torch.equal(a, b)
+            a64, b64 = a.double(), b.double()
+            scale = max(float(a64.abs().max()), 1e-300) if a.numel() else 1
+            err = float((a64 - b64).abs().max()) / scale if a.numel() else 0
+            check(err <= CLI_RESTART_TOL, f"restart {k}: {err:.3e} > "
+                  f"{CLI_RESTART_TOL:.0e}")
+            worst = max(worst, err)
+        res["restart"] = {"max_rel_err": worst, "bit_equal": equal}
+        log(f"cli restart: (b) from the 12:00 checkpoint against (a) in one "
+            f"piece, largest field error {worst:.3e} of scale, bit-equal "
+            f"{equal}")
+        # (c) multiphase chem=T with binout from 11:59 for 2 minutes
+        cnml = cli_namelist(d / "multiphase.nml", inpdir,
+                            dict(MULTIPHASE, dtype="float32", binout=True,
+                                 mechdir=totdir), nhour=CLI_NHOUR)
+        ccfg = cli_config(cnml)
+        cstart = cli_start(cnml, CLI_CHEM_START_MINUTE,
+                           str(d / "cstart.pt"))
+        _, res["c"] = run_cli("(c) multiphase 2 minutes", [
+            "--namelist", cnml, "--outdir", str(d / "c"), "--restart",
+            cstart, "--minutes", str(CLI_CHEM_MINUTES)])
+        check_cli_outputs(d / "c", ccfg, chem=True)
+        for k in ("bott_dwsum", "bott_advect", "batched_inv"):
+            check(res["c"]["launches"][k] > 0, f"(c): {k} not launched")
+        # (d) --profile: minutes 2-4 traced
+        _, res["d"] = run_cli("(d) profile 4 minutes", [
+            "--namelist", nml, "--outdir", str(d / "d"), "--restart", start,
+            "--minutes", str(CLI_PROFILE_MINUTES), "--profile",
+            str(d / "trace")])
+        check_cli_outputs(d / "d", cfg, chem=False, hourly=False)
+        traces = list((d / "trace").glob("trace_*.json"))
+        check(len(traces) == 1, f"profile: traces {traces}")
+        blob = traces[0].read_bytes()
+        res["d"]["trace_mb"] = len(blob) / 1e6
+        # kernel events carry the kernel's signature ("void
+        # bott_dwsum_kernel<float>(...)")
+        res["d"]["dwsum_events"] = blob.count(b"bott_dwsum_kernel")
+        log(f"cli profile: trace {res['d']['trace_mb']:.1f} MB, "
+            f"{res['d']['dwsum_events']} bott_dwsum_kernel events")
+        check(res["d"]["dwsum_events"] > 0, "profile: no bott_dwsum_kernel")
+    log(f"cli summary ({card_line()}): writer {res['a']['writer']}; s per "
+        + ", ".join(f"minute ({k}) {res[k]['s_per_minute']:.3f}"
+                    for k in "abcd")
+        + f"; snapshot: initial record {res['a']['snapshot_initial_ms']:.3f}"
+        f" ms, with ff {res['a']['snapshot_ff_ms']:.3f} ms, without "
+        f"{res['a']['snapshot_no_ff_ms']:.3f} ms, checkpoint "
+        f"{res['a']['checkpoint_ms']:.3f} ms (a)")
+    return res
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
     from nvcc -Xptxas -v output."""
@@ -2031,6 +2328,7 @@ def main() -> int:
                     soil_minute=soil_main["soil"])
         main["modes_card_vs_cpu"] = timed(
             "phase 15", phase_modes_device_vs_cpu, inpdir)
+        main["cli"] = timed("phase 16", phase_cli, inpdir, totdir)
     # each kernel's launches on the modes slice's paths (phases 12-14)
     mode_counts = {"nucleation": nuc_counts, "box": box_counts["box"],
                    "chamber": box_counts["chamber"],
@@ -2055,6 +2353,8 @@ def main() -> int:
                      "multiphase_rows": bott_mp[name],
                      **{f"launches_{p}": c[name]
                         for p, c in mode_counts.items()},
+                     "launches_cli": main["cli"]["a"]["launches"][name],
+                     "launches_cli_chem": main["cli"]["c"]["launches"][name],
                      **kernels[name]})
     # the main path's calls: float64 stage matrices, the aqueous blocks
     # and the Schur complement (one of each per Ros3 step attempt)
@@ -2101,6 +2401,8 @@ def main() -> int:
             "shapes": [{k: r[k] for k in shape_keys}
                        for r in lu_mp.values()]},
         **{f"launches_{p}": c["batched_inv"] for p, c in mode_counts.items()},
+        "launches_cli": main["cli"]["a"]["launches"]["batched_inv"],
+        "launches_cli_chem": main["cli"]["c"]["launches"]["batched_inv"],
         "box_minute": {
             "launches_per_ros3_iteration":
                 box_counts["box"]["batched_inv"]

@@ -3,7 +3,8 @@ CPU: ``Model`` (chem=F, chem=T with the gas-phase driver and chem=T with
 the multiphase driver; nuc=T, mic=F and isurf=1), ``BoxModel`` (box and
 chamber), ``GasKernel`` and ``BlockArrowSolver`` built without a device
 take CUDA, and on a host without a card they raise instead of falling
-back to the CPU; a chem=T model builds its chemistry driver's kernels and
+back to the CPU (the run harness's ``cli.main`` too, unless given
+``--platform cpu``); a chem=T model builds its chemistry driver's kernels and
 stage solvers on its own device, and a box its model's."""
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import mistra_tpu_torch as pt
+from mistra_tpu_torch import cli
 from mistra_tpu_torch.boxmodel import write_synthetic_chamber_dat
 from mistra_tpu_torch.chemistry import mech as tmech
 from mistra_tpu_torch.chemistry.block_solver import BlockArrowSolver
@@ -120,3 +122,17 @@ def test_box_model_builds_on_its_device(tmp_path):
     with pytest.raises(ValueError, match="box or"):
         pt.BoxModel(bm.model.cfg.__class__(inpdir=str(tmp_path)),
                     device="cpu")
+
+
+def test_cli_runs_on_the_card_unless_told_cpu(tmp_path, monkeypatch):
+    """Without a card and without --platform cpu, cli.main raises before
+    it builds a model or writes anything: it does not run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    built = []
+    monkeypatch.setattr(pt.Model, "__init__",
+                        lambda *a, **k: built.append(a))
+    for platform in ([], ["--platform", "cuda"], ["--platform", "gpu"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--outdir", str(tmp_path / "out"), *platform])
+    assert not built and not (tmp_path / "out").exists()
+    assert cli.device_for("cpu") == torch.device("cpu")

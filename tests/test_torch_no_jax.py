@@ -2,8 +2,10 @@
 has no JAX.  A fresh interpreter imports the port's package, its
 radiation driver, its chemistry kernel, its photolysis driver, its
 gas-phase and multiphase chemistry drivers, the aqueous stack beneath
-them, the stiff-cell report, the soil surface, nucleation and the box
-and chamber modes, and finds no jax module."""
+them, the stiff-cell report, the soil surface, nucleation, the box
+and chamber modes and the run harness (the CLI, checkpoints, the output
+writers and profiles, the chemistry diagnostics, the projection,
+profiling and the ensemble mesh), and finds no jax module."""
 
 from __future__ import annotations
 
@@ -29,7 +31,14 @@ ROOT = Path(__file__).resolve().parent.parent
     "mistra_tpu_torch.chemistry.stiff_cells",
     "mistra_tpu_torch.physics.surface",
     "mistra_tpu_torch.physics.nucleation",
-    "mistra_tpu_torch.boxmodel"])
+    "mistra_tpu_torch.boxmodel",
+    "mistra_tpu_torch.cli", "mistra_tpu_torch.__main__",
+    "mistra_tpu_torch.io.checkpoint", "mistra_tpu_torch.io.output",
+    "mistra_tpu_torch.io.netcdf", "mistra_tpu_torch.io.profiles",
+    "mistra_tpu_torch.chemistry.diagnostics",
+    "mistra_tpu_torch.physics.projection",
+    "mistra_tpu_torch.utils.profiling",
+    "mistra_tpu_torch.parallel.mesh"])
 def test_port_imports_no_jax(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

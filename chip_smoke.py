@@ -113,7 +113,20 @@ Phases (any failure exits non-zero):
      in (a), all three in (c)), its seconds per minute and host ms per
      snapshot (the initial record, with its first-call set-up; with the
      2-D spectrum ff; without) and per checkpoint, the writer it took and
-     whether the host has libnetcdf.
+     whether the host has libnetcdf;
+ 17. the tp split: ff's dry-aerosol axis over TP = 2 ranks, spawned
+     processes joined by torch.distributed (nccl with a card each where
+     the host has two cards, else gloo with both ranks on cuda:0; the
+     log says which): (a) BTZ96 and (b) chem=T at the production grid,
+     float32, 16 columns (half at noon for chem=T), two minutes, each
+     rank's launches (dwsum equal to a tp=1 run's on the same state,
+     advect once per substep, the inverse on every rank), all_reduce
+     calls and host ms per minute and minute time beside the tp=1 run's;
+     (c) a noon and a midnight column in float64, one minute, shared out
+     from tp=1's start state, gathered and held against tp=1 at phase
+     4's tolerances; the replicated fields bit-equal across the ranks
+     (gather_state checks them in every run).  A rank that fails or
+     outlives its deadline fails the script.
 
 The input tables of phases 3-4b and 8-9 are the reference's where $INPDIR
 holds them (clarke.dat; pifm2_171115.dat with the six Mie files;
@@ -356,6 +369,31 @@ CLI_RESTART_TOL = 1e-6
 CLI_TIMEOUT_S = 600
 # --grid of the runs: None is the production grid
 CLI_GRID = None
+
+# the tp split (phase 17): ff's dry-aerosol axis over TP ranks, one
+# spawned process each; (a) BTZ96 and (b) chem=T at the production grid
+# in float32, TP_COLUMNS columns, TP_MINUTES minutes, and (c) BTZ96 and
+# chem=T, a noon and a midnight column each, in float64 for one minute
+# against tp=1 on the same card
+TP = 2
+TP_COLUMNS = 16
+TP_MINUTES = 2
+# a rank's collectives wait at most this long on the other rank; the
+# parent waits at most TP_JOIN_S for both ranks to end
+TP_COLLECTIVE_TIMEOUT_S = 120.0
+TP_JOIN_S = 480.0
+# (c): tp=TP against tp=1 on one card, float64, relative to each field's
+# largest magnitude (each row's own for TP_ROWS).  The two
+# differ only in the order of the sums over the dry bins (a partial sum
+# per rank, then their sum): ~1e-16 per sum, which a minute's Newton
+# solves lift to ~1e-11 of the scale (6.4e-12 for fogged columns on the
+# CPU, tests/test_torch_mesh_tp.py)
+TP_TOL = 1e-10
+TP_FIELDS = ("met.t", "met.xm1", "micro.ff", "rad.dtrad", "rad.totrad",
+             "rad.sk", "rad.sl")
+# the chem=T fields compared per row (species, J slot), each to its own
+# largest magnitude
+TP_ROWS = ("chem.sgas", "chem.photol_j")
 
 
 def log(msg: str) -> None:
@@ -2184,6 +2222,262 @@ def phase_cli(inpdir, totdir):
     return res
 
 
+def tp_backend() -> str:
+    """nccl with one card per rank where the host has TP cards, else
+    gloo with every rank on cuda:0 (NCCL refuses two ranks on one card;
+    gloo's all_reduce takes CUDA tensors through the host)."""
+    return "nccl" if torch.cuda.device_count() >= TP else "gloo"
+
+
+def tp_devices() -> list:
+    count = torch.cuda.device_count()
+    return [f"cuda:{r % count}" for r in range(TP)]
+
+
+def tp_run(model, m, state, kernels, bott_cuda, lu_cuda):
+    """TP_MINUTES minutes of this rank's share through the ensemble step
+    of mesh m, every kernel's counter and the all_reduce counter set to 0
+    just before and read just after; returns (state, figures)."""
+    import torch.distributed as dist
+    from mistra_tpu_torch.parallel import mesh
+    step = mesh.make_ensemble_step(model, m)
+    dist.barrier()
+    model.bins.reset_counts()
+    state, times, counts, solves = run_minutes(
+        step, state, TP_MINUTES, kernels, bott_cuda, lu_cuda)
+    calls, seconds = model.bins.calls, model.bins.seconds
+    check_state(state, f"tp rank {m.rank}")
+    fig = minute_figures(state.met.t.shape[0], times, counts,
+                         loop_iterations(solves), None)
+    fig.update(allreduce_calls=calls,
+               allreduce_per_minute=calls / TP_MINUTES,
+               allreduce_host_ms_per_minute=1e3 * seconds / TP_MINUTES)
+    return state, fig
+
+
+def tp_rank(rank, job):
+    """One rank of phase 17 (a spawned process; the mesh is dp = 1, tp =
+    TP): joins the process group, runs (a), (b) and (c) on its share and
+    writes its figures, and rank 0 the gathered end state of (c), to
+    job["out"]/rank<r>.pt; a traceback to rank<r>.err where it fails
+    (then exits non-zero)."""
+    import traceback
+
+    import torch.distributed as dist
+    out = os.path.join(job["out"], f"rank{rank}")
+    try:
+        from mistra_tpu_torch import Model
+        from mistra_tpu_torch.chemistry import lu_cuda
+        from mistra_tpu_torch.io.checkpoint import flatten_state
+        from mistra_tpu_torch.kernels import build
+        from mistra_tpu_torch.parallel import mesh
+        from mistra_tpu_torch.physics import bott_cuda
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # the parent built the library: a rank only loads it
+        check(build.library_path().exists(), "kernel library not built")
+        build.load_library()
+        mesh.init_distributed(job["init"], TP, rank, backend=job["backend"],
+                              timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+        m = mesh.make_mesh(tp=TP, devices=job["devices"])
+        torch.cuda.set_device(m.device)
+
+        def model_of(cfg):
+            return Model(cfg, device=m.device, bins=m.bins(cfg.grid.nka))
+
+        # (a), (b): the initial state of this rank's bins (init_state
+        # builds the whole column and cuts it); gather_state raises unless
+        # the replicated fields agree across the ranks
+        model = model_of(job["btz96"])
+        res = {"device": str(m.device), "bins": (model.bins.lo,
+                                                 model.bins.hi)}
+        state, res["a"] = tp_run(model, m, model.init_state(TP_COLUMNS), (),
+                                 bott_cuda, lu_cuda)
+        mesh.gather_state(state, m)
+        model = model_of(job["chem_t"])
+        state = midnight_and_noon(model, TP_COLUMNS)
+        state, res["b"] = tp_run(model, m, state, (model._chemistry.kernel,),
+                                 bott_cuda, lu_cuda)
+        res["b"]["nonconv"] = int(state.chem.nonconv.sum())
+        mesh.gather_state(state, m)
+        # (c): the parent's global start states, shared out
+        res["c"] = {}
+        for what, (cfg, flat) in job["cmp"].items():
+            model = model_of(cfg)
+            start = model.init_state(1).map_paths(lambda p, _x: flat[p])
+            model.bins.reset_counts()
+            state = mesh.make_ensemble_step(model, m)(
+                mesh.shard_state(start, m))
+            end = mesh.gather_state(state, m)
+            res["c"][what] = {"allreduce_calls": model.bins.calls,
+                              "gathered": flatten_state(end)
+                              if rank == 0 else None}
+        torch.cuda.synchronize()
+        torch.save(res, out + ".pt")
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_tp_ranks(job) -> list:
+    """Phase 17's ranks as spawned processes; each one's result, in rank
+    order.  Fails if a rank failed or is still running after TP_JOIN_S
+    (then killed)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank, args=(r, job)) for r in range(TP)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_JOIN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in late:
+        procs[r].kill()
+        procs[r].join(30.0)
+    errors = ""
+    for r in range(TP):
+        err = os.path.join(job["out"], f"rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors += f"\nrank {r}:\n{f.read()}"
+    check(not late, f"tp ranks {late} still running after {TP_JOIN_S} s"
+          + errors)
+    codes = [p.exitcode for p in procs]
+    check(not any(codes), f"tp rank exit codes {codes}" + errors)
+    return [torch.load(os.path.join(job["out"], f"rank{r}.pt"),
+                       weights_only=False) for r in range(TP)]
+
+
+def phase_tp(inpdir, gasdir, bott_cuda, lu_cuda):
+    """The tp split on the card: the paths of (a), (b) and (c) at tp=1 in
+    this process, then at tp=TP in spawned ranks on the backend of
+    ``tp_backend``; checks each rank's launches against tp=1, (c)'s
+    gathered states against tp=1 at TP_TOL and the replicated fields
+    bit-equal across the ranks (``gather_state`` raises otherwise).
+    Returns the figures."""
+    from mistra_tpu_torch import Model
+    from mistra_tpu_torch.io.checkpoint import flatten_state
+    backend, devices = tp_backend(), tp_devices()
+    log(f"phase 17: tp={TP} ranks on {devices} over {backend} "
+        f"({torch.cuda.device_count()} cards visible)")
+    cfgs = {"btz96": model_config(inpdir, "float32"),
+            "chem_t": chem_t_config(inpdir, gasdir, "float32")}
+    cmp_cfgs = {"BTZ96": model_config(inpdir, "float64"),
+                "chem=T": chem_t_config(inpdir, gasdir, "float64")}
+    ref = {}
+    model = Model(cfgs["btz96"], device=DEVICE)
+    _, times, counts, _ = run_minutes(
+        model.minute_step, model.init_state(TP_COLUMNS), TP_MINUTES, (),
+        bott_cuda, lu_cuda)
+    ref["a"] = minute_figures(TP_COLUMNS, times, counts, 0, None)
+    model = Model(cfgs["chem_t"], device=DEVICE)
+    state = midnight_and_noon(model, TP_COLUMNS)
+    state, times, counts, solves = run_minutes(
+        model.minute_step, state, TP_MINUTES, (model._chemistry.kernel,),
+        bott_cuda, lu_cuda)
+    ref["b"] = minute_figures(TP_COLUMNS, times, counts,
+                              loop_iterations(solves),
+                              int(state.chem.nonconv.sum()))
+    cmp, ref_end = {}, {}
+    for what, cfg in cmp_cfgs.items():
+        model = Model(cfg, device=DEVICE)
+        start = midnight_and_noon(model)
+        cmp[what] = (cfg, {k: v.cpu()
+                           for k, v in flatten_state(start).items()})
+        ref_end[what] = {k: v.cpu() for k, v in
+                         flatten_state(model.minute_step(start)).items()}
+    torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="mistra_tp_") as tmp:
+        job = dict(cfgs, backend=backend, devices=devices, out=tmp,
+                   init=f"file://{tmp}/init", cmp=cmp)
+        ranks = spawn_tp_ranks(job)
+
+    out = {"backend": backend, "devices": devices, "tp": TP,
+           "columns": TP_COLUMNS, "minutes": TP_MINUTES, "tp1": ref,
+           "ranks": []}
+    for r, res in enumerate(ranks):
+        a, b = res["a"], res["b"]
+        for what, fig, tp1 in (("BTZ96", a, ref["a"]), ("chem=T", b,
+                                                          ref["b"])):
+            la, l1 = fig["launches"], tp1["launches"]
+            check(la["bott_dwsum"] == l1["bott_dwsum"],
+                  f"tp rank {r} {what}: dwsum {la['bott_dwsum']} launches, "
+                  f"tp=1 {l1['bott_dwsum']}")
+            check(la["bott_advect"] == 6 * TP_MINUTES,
+                  f"tp rank {r} {what}: advect {la['bott_advect']}")
+            check(fig["allreduce_calls"] > 0, f"tp rank {r}: no all_reduce")
+        check(b["launches"]["batched_inv"] == 2 * b["ros3_iterations"] > 0,
+              f"tp rank {r} chem=T: batched_inv {b['launches']} for "
+              f"{b['ros3_iterations']} Ros3 iterations")
+        check(a["launches"]["batched_inv"] == 0, f"tp rank {r}: BTZ96 "
+              "launched the inverse")
+        for k in ("launches", "allreduce_calls", "ros3_iterations"):
+            check(a[k] == ranks[0]["a"][k] and b[k] == ranks[0]["b"][k],
+                  f"tp ranks 0 and {r} differ in {k}")
+        out["ranks"].append({"rank": r, "device": res["device"],
+                             "bins": res["bins"], "btz96": a, "chem_t": b})
+        log(f"tp rank {r} ({res['device']}, dry bins {res['bins']}): "
+            f"BTZ96 {TP_COLUMNS} columns float32 minute "
+            f"{[round(t, 1) for t in a['minute_ms']]} ms (tp=1 "
+            f"{[round(t, 1) for t in ref['a']['minute_ms']]}), launches "
+            f"{a['launches']} (tp=1 {ref['a']['launches']}), all_reduce "
+            f"{a['allreduce_per_minute']:.1f} per minute, "
+            f"{a['allreduce_host_ms_per_minute']:.2f} host ms per minute; "
+            f"chem=T minute {[round(t, 1) for t in b['minute_ms']]} ms "
+            f"(tp=1 {[round(t, 1) for t in ref['b']['minute_ms']]}), "
+            f"launches {b['launches']} (tp=1 {ref['b']['launches']}), "
+            f"{b['ros3_iterations']} Ros3 iterations (tp=1 "
+            f"{ref['b']['ros3_iterations']}), nonconv {b['nonconv']} (tp=1 "
+            f"{ref['b']['nonconv']}), all_reduce "
+            f"{b['allreduce_per_minute']:.1f} per minute, "
+            f"{b['allreduce_host_ms_per_minute']:.2f} host ms per minute")
+
+    out["cmp"] = {}
+    for what, want in ref_end.items():
+        got = ranks[0]["c"][what]["gathered"]
+        paths = TP_FIELDS + tuple(p for p in TP_ROWS if p in want)
+        errs = {p: tp_rel_err(want[p], got[p], rows=p in TP_ROWS)
+                for p in paths}
+        for p, e in errs.items():
+            check(e <= TP_TOL, f"{what} tp={TP} vs tp=1 {p}: {e:.3e} > "
+                  f"{TP_TOL}")
+        bit_equal = [k for k in want if torch.equal(want[k], got[k])]
+        calls = [r["c"][what]["allreduce_calls"] for r in ranks]
+        check(calls[0] > 0 and len(set(calls)) == 1,
+              f"{what} (c): all_reduce calls {calls}")
+        log(f"{what} tp={TP} vs tp=1 on the card ({card_line()}; 2 columns "
+            f"at 00:00 and 12:00, float64, 1 minute, gathered from the "
+            f"ranks; the replicated fields bit-equal across the ranks) max "
+            f"rel err: " + ", ".join(f"{p} {e:.3e}" for p, e in errs.items())
+            + f"; {len(bit_equal)} of {len(want)} fields bit-equal to tp=1"
+            f"; {calls[0]} all_reduce calls per rank")
+        out["cmp"][what] = {"max_rel_err": errs,
+                            "fields_bit_equal_to_tp1": len(bit_equal),
+                            "fields": len(want), "allreduce_calls": calls}
+    return out
+
+
+def tp_rel_err(want, got, rows=False) -> float:
+    """max |got - want| over want's largest magnitude; with rows ([B,
+    rows, n]) each row's over its own, an absolute difference where a row
+    is zero everywhere."""
+    want, got = want.double(), got.double()
+    if rows:
+        scale = want.abs().amax(dim=(0, 2))
+        diff = (got - want).abs().amax(dim=(0, 2))
+        return float(torch.where(scale > 0, diff / scale.clamp(
+            min=1e-300), diff).max())
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return diff / scale if scale > 0 else diff
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: {registers, stack, spill_stores, spill_loads}}
     from nvcc -Xptxas -v output."""
@@ -2329,6 +2623,8 @@ def main() -> int:
         main["modes_card_vs_cpu"] = timed(
             "phase 15", phase_modes_device_vs_cpu, inpdir)
         main["cli"] = timed("phase 16", phase_cli, inpdir, totdir)
+        main["tp_split"] = tp = timed("phase 17", phase_tp, inpdir, gasdir,
+                                      bott_cuda, lu_cuda)
     # each kernel's launches on the modes slice's paths (phases 12-14)
     mode_counts = {"nucleation": nuc_counts, "box": box_counts["box"],
                    "chamber": box_counts["chamber"],
@@ -2355,6 +2651,11 @@ def main() -> int:
                         for p, c in mode_counts.items()},
                      "launches_cli": main["cli"]["a"]["launches"][name],
                      "launches_cli_chem": main["cli"]["c"]["launches"][name],
+                     # per tp rank: BTZ96 (phase 17 a), chem=T (b)
+                     "launches_tp": [r["btz96"]["launches"][name]
+                                     for r in tp["ranks"]],
+                     "launches_tp_chem_t": [r["chem_t"]["launches"][name]
+                                            for r in tp["ranks"]],
                      **kernels[name]})
     # the main path's calls: float64 stage matrices, the aqueous blocks
     # and the Schur complement (one of each per Ros3 step attempt)
@@ -2403,6 +2704,9 @@ def main() -> int:
         **{f"launches_{p}": c["batched_inv"] for p, c in mode_counts.items()},
         "launches_cli": main["cli"]["a"]["launches"]["batched_inv"],
         "launches_cli_chem": main["cli"]["c"]["launches"]["batched_inv"],
+        # per tp rank, the chem=T minute of phase 17 (b)
+        "launches_tp": [r["chem_t"]["launches"]["batched_inv"]
+                        for r in tp["ranks"]],
         "box_minute": {
             "launches_per_ros3_iteration":
                 box_counts["box"]["batched_inv"]

@@ -109,14 +109,17 @@ class BoxModel:
       cfg: a configuration with box=True or chamber=True.
       device: the ``Model`` the box owns runs there (the card by default;
         "cpu" runs the plain versions).
+      bins: the model's dry bins (``Model``'s argument): the box modes
+        run on the whole axis only, and part of it raises.
     """
 
-    def __init__(self, cfg, device="cuda"):
+    def __init__(self, cfg, device="cuda", bins=None):
         if not (cfg.box or cfg.chamber):
             raise ValueError("BoxModel requires cfg.box or cfg.chamber")
         self.cfg = cfg
-        self.model = Model(cfg, device=device)
+        self.model = Model(cfg, device=device, bins=bins)
         self.device = self.model.device
+        self.bins = self.model.bins
         if cfg.chamber:
             # chamber runs start at midday with fixed declination
             # (initm, str.f90:1075,1095)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..constants import CAL15, GAS_CONST, PI
+from ..parallel.bins import BinShard
 from .driver import henry_molar
 
 # thresholds (cw_rc)
@@ -113,7 +114,9 @@ _STICK_HS = {"ROOH": (6.5e3, 32.5), "ACO2": (7.9e3, 34.9),
 
 
 def bin_masks(micro_grid):
-    """Static (nkt, nka, nkc) membership tensor of the 4 chemistry bins."""
+    """Static (nkt, nka, nkc) membership tensor of the 4 chemistry bins,
+    over the whole dry axis (its global index ia; a shard takes its
+    columns)."""
     ka = micro_grid.ka
     kw = np.asarray(micro_grid.kw)
     nka = kw.shape[0]
@@ -344,19 +347,23 @@ def equil_constants(t, conv2, xgamma):
     return kef, keb
 
 
-def dry_aerosol_rates(ff, t, masks, rq, freep):
+def dry_aerosol_rates(ff, t, masks, rq, freep, bins=None):
     """Het-on-dry-aerosol stack of B columns (dry_cw_rc + dry_rates_g).
 
     ff [B, nkt, nka, n]; t, freep [B, n]; masks [nkt, nka, nkc] and rq
-    [nkt, nka] tensors of ff's dtype.  Returns dict with xkmtd (species ->
+    [nkt, nka] tensors of ff's dtype, over ff's dry bins; ``bins`` (a
+    ``parallel.bins.BinShard``, the whole axis by default) says which
+    bins ff holds, and the bin sums take one all_reduce over the tp
+    ranks.  Returns dict with xkmtd (species ->
     [B, 2, n]) for HNO3/N2O5/NH3/H2SO4, henry_dry (species -> [B, n]),
     xeq_hno3 [B, n] and the dry LWC/radius cwd, rcd [B, 2, n] of the two
     aerosol bins.
     """
     m = masks[:, :, :2]                          # aerosol bins only
     vol = 4.0 / 3.0 * PI * rq ** 3
-    cwd_raw = bin_sums(ff, vol, m)
-    rcd_raw = bin_sums(ff, vol * rq, m)
+    bins = BinShard(ff.shape[2]) if bins is None else bins
+    cwd_raw, rcd_raw = bins.sum_bins(bin_sums(ff, vol, m),
+                                     bin_sums(ff, vol * rq, m))
     rcd = torch.where(cwd_raw > 0.0,
                       rcd_raw / torch.clamp(cwd_raw, min=1e-300) * 1.0e-6,
                       0.0)

@@ -232,8 +232,10 @@ class ChemistryDriver:
         # ground emissions [molec/cm2/s] of the concentration field's
         # species
         self.conc_es = t(es)
-        self._masks = t(self.masks)
-        self._rq = t(self.model.grids.micro.rq)
+        # the model's dry bins of the whole axis' masks and radii
+        bins = self.model.bins
+        self._masks = bins.take(t(self.masks), 1)
+        self._rq = bins.take(t(self.model.grids.micro.rq), 1)
 
     # ------------------------------------------------------------------
     def eulerian_advection(self, chem, kinv, am3, dt):
@@ -380,7 +382,7 @@ class ChemistryDriver:
         t, p = met.t, met.p
         freep = 2.28e-5 * t / p
         dry = aq.dry_aerosol_rates(state.micro.ff, t, self._masks, self._rq,
-                                   freep)
+                                   freep, self.model.bins)
 
         def cells(x):
             """[B, 2, n] -> [2, B * nlev]; [B, n] -> [B * nlev]."""

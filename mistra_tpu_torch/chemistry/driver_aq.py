@@ -236,7 +236,8 @@ class MultiphaseDriver(ChemistryDriver):
             t.to(td), torch.clamp(state.chem.conc, min=0.0).to(td),
             cm.to(td), cw.to(td), self.tot_n2i, gp.nf)
         kef, keb = aq.equil_constants(t.to(td), conv2.to(td), xgamma)
-        dry = aq.dry_aerosol_rates(ff, t, self._masks, self._rq, freep)
+        dry = aq.dry_aerosol_rates(ff, t, self._masks, self._rq, freep,
+                                   self.model.bins)
         return {"cw": cw, "cm": cm, "rc": rc, "conv2": conv2,
                 "cloud": cloud, "xkmt": xkmt, "vt": vt, "kef": kef,
                 "keb": keb, "dry": dry}

@@ -38,6 +38,13 @@ the optional Eulerian source (neula=0) and the stiff Ros3 solve after the
 surface, then (with the multiphase driver) the aerosol mass feedback and
 (nuc=True) ``physics.nucleation.NucleationDriver``; the J-rates at init
 and on even minutes when the sun is up.
+
+A ``Model`` holds a ``parallel.bins.BinShard``: the dry-aerosol bins of
+ff that this process steps (the whole axis by default).  With part of the
+axis (one rank of the ensemble mesh's "tp" axis) every per-bin constant
+is cut to those bins and every sum over the bins is completed by an
+all_reduce over the tp ranks; the multiphase driver, nucleation and the
+box modes are not split that way and refuse it.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from .config import MistraConfig
 from .constants import PI
 from .grids import AtmGrid, Grids, MicroGrid, make_grids
 from .init import AstroConsts, initial_state, solar_constants
+from .parallel.bins import BinShard
 from .physics import diffusion, growth, microphysics, sedimentation, surface
 from .physics.turbulence import atk0
 from .state import ModelState, repeat_columns, torch_dtype
@@ -79,16 +87,43 @@ def atm_tensors(atm: AtmGrid, dtype, device) -> AtmGrid:
                    deta=t(atm.deta))
 
 
-def micro_tensors(mg: MicroGrid, dtype, device) -> MicroGrid:
+# the arrays of MicroGrid indexed by the dry-aerosol bin, and that axis
+_MICRO_PER_BIN = {"enw": 0, "en": 0, "rn": 0, "kw": 0, "rq": 1, "rw": 1}
+# the per-bin arrays among the constants, and their dry-aerosol axis
+_CONSTS_PER_BIN = {"b0m": 0, "qabs": 2}
+
+
+def micro_tensors(mg: MicroGrid, dtype, device,
+                  bins: BinShard | None = None) -> MicroGrid:
     """The microphysics grid with its arrays as tensors of dtype on device
-    (kw as int64); scalar increments stay Python numbers."""
-    def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+    (kw as int64), the per-bin ones cut to ``bins`` (all by default);
+    scalar increments and the chemistry split ``ka`` stay Python
+    numbers (``ka`` a global bin index)."""
+    def t(k):
+        x = torch.as_tensor(getattr(mg, k), device=device,
+                            dtype=torch.int64 if k == "kw" else dtype)
+        return bins.take(x, _MICRO_PER_BIN[k]) \
+            if bins is not None and k in _MICRO_PER_BIN else x
     arrays = ("enw", "en", "ew", "e", "dew", "rn", "rq", "rw", "re1", "re2",
-              "re3", "rpw")
-    return dataclasses.replace(
-        mg, kw=torch.as_tensor(mg.kw, dtype=torch.int64, device=device),
-        **{k: t(getattr(mg, k)) for k in arrays})
+              "re3", "rpw", "kw")
+    return dataclasses.replace(mg, **{k: t(k) for k in arrays})
+
+
+def refuse_bin_split(cfg: MistraConfig) -> None:
+    """Raise for the configurations whose step is not split over the dry
+    bins (ROADMAP §1, "Still to port" 1)."""
+    if cfg.box or cfg.chamber:
+        what = "the box and chamber modes (BoxModel)"
+    elif cfg.nuc:
+        what = "nucleation (nuc=T)"
+    elif cfg.chem and cfg.mic and cfg.nkc_l > 0:
+        what = "the multiphase driver (mic=T, chem=T, nkc_l>0)"
+    else:
+        return
+    raise NotImplementedError(
+        f"{what} does not run with the dry-aerosol bins split over tp ranks "
+        "(ROADMAP §1, \"Still to port\" 1: tp > 1 for the multiphase "
+        "driver, nucleation and BoxModel); use tp=1")
 
 
 class Model:
@@ -101,12 +136,22 @@ class Model:
       band: Bott walk band J (walks longer than J bins per substep are
         clamped; J >= nkt is exact).
       newton_iters: bound of subkon's Newton iteration.
+      bins: the dry-aerosol bins this process steps (``BinShard``; the
+        whole axis by default); a part of the axis needs the tp process
+        group of ``parallel.mesh.make_mesh``.
     """
 
     def __init__(self, cfg: MistraConfig, device="cuda",
                  band: int = growth.BAND,
-                 newton_iters: int = growth.NEWTON_ITERS):
+                 newton_iters: int = growth.NEWTON_ITERS,
+                 bins: BinShard | None = None):
         self.cfg = cfg
+        self.bins = BinShard(cfg.grid.nka) if bins is None else bins
+        if self.bins.nka != cfg.grid.nka:
+            raise ValueError(f"bins of an axis of {self.bins.nka}, the grid "
+                             f"has nka={cfg.grid.nka}")
+        if not self.bins.is_whole:
+            refuse_bin_split(cfg)
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg)
         self.band = band
@@ -124,30 +169,35 @@ class Model:
         self._const_tensors: dict = {}
         # grids and tables in the compute dtype, on the model's device
         self.atm = atm_tensors(self.grids.atm, self.dtype, self.device)
-        self.micro = micro_tensors(self.grids.micro, self.dtype, self.device)
+        self.micro = micro_tensors(self.grids.micro, self.dtype, self.device,
+                                   self.bins)
         self.clarke_dev = self.clarke.to(self.dtype, self.device)
 
     def set_consts(self, consts: dict) -> None:
         """Install the per-configuration constants (a0m, b0m, nar, ...)."""
         self.consts.update(consts)
-        self.b0m = torch.as_tensor(np.asarray(consts["b0m"]),
-                                   dtype=self.dtype, device=self.device)
+        self.b0m = self.const_tensor("b0m")
 
     def const_tensor(self, name: str) -> torch.Tensor:
         """``consts[name]`` as a tensor of the compute dtype on the model's
-        device, converted once per array installed under that name."""
+        device (a per-bin array cut to the model's bins), converted once
+        per array installed under that name."""
         arr = self.consts[name]
         hit = self._const_tensors.get(name)
         if hit is None or hit[0] is not arr:
-            hit = (arr, torch.as_tensor(np.asarray(arr), dtype=self.dtype,
-                                        device=self.device))
+            x = torch.as_tensor(np.asarray(arr), dtype=self.dtype,
+                                device=self.device)
+            if name in _CONSTS_PER_BIN:
+                x = self.bins.take(x, _CONSTS_PER_BIN[name])
+            hit = (arr, x)
             self._const_tensors[name] = hit
         return hit[1]
 
     # ------------------------------------------------------------------
     def init_state(self, B: int = 1) -> ModelState:
         """Initial state of B identical columns on the model's device
-        (init sequence of str.f90:72-321)."""
+        (init sequence of str.f90:72-321), ff and vd cut to the model's
+        bins: the whole column is built, then shared out."""
         cfg = self.cfg
         cpu = torch.device("cpu")
         state, consts = initial_state(cfg, self.grids, self.clarke)
@@ -192,7 +242,8 @@ class Model:
         if self._photolysis is not None:
             state = self.photolysis_step(
                 state, torch.ones_like(state.rad.u0, dtype=torch.bool))
-        return repeat_columns(state.to(self.device), B)
+        return repeat_columns(self.bins.take_state(state).to(self.device),
+                              B)
 
     def photolysis_step(self, state: ModelState, due) -> ModelState:
         """state with photol_j recomputed in the columns where due [B] is
@@ -235,7 +286,7 @@ class Model:
             # particle diffusion, condensational growth, settling, then the
             # levels above nf back onto the Koehler curve
             micro = diffusion.difp(state.micro, state.met, state.turb,
-                                   self.atm, dd)
+                                   self.atm, dd, self.bins)
             state = state.replace(micro=micro)
             ff_before_kon = state.micro.ff
             state = growth.kon(self, state, dd)
@@ -247,12 +298,12 @@ class Model:
             state = sedimentation.sedp(self, state, dd)
             met, micro = microphysics.equil(
                 state.met, state.micro, self.micro, a0m, self.b0m, ncase=2,
-                nf=cfg.grid.nf)
+                nf=cfg.grid.nf, bins=self.bins)
         else:
             # non-mic runs keep the boundary-layer top level in equilibrium
             met, micro = microphysics.equil(
                 state.met, state.micro, self.micro, a0m, self.b0m, ncase=1,
-                nf=cfg.grid.nf, level=cfg.grid.nf - 1)
+                nf=cfg.grid.nf, level=cfg.grid.nf - 1, bins=self.bins)
         state = state.replace(met=met, micro=micro)
 
         # radiative heating of interior levels

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import FCOR, R0
+from ..parallel.bins import BinShard
 from ..utils.tridiag import diffusion_coefficients, implicit_sweep, subsidence
 from .thermo import p21
 from .turbulence import atk1
@@ -78,8 +79,11 @@ def difm(met, turb, surf, micro, grid, dt, ug, vg):
     return met, turb, kinv
 
 
-def difp(micro, met, turb, grid, dt):
-    """Implicit diffusion + subsidence of the 2-D particle spectrum."""
+def difp(micro, met, turb, grid, dt, bins=None):
+    """Implicit diffusion + subsidence of the 2-D particle spectrum;
+    ``bins`` (a ``parallel.bins.BinShard``, the whole axis by default)
+    says which dry bins ff holds, and fsum takes one all_reduce over the
+    tp ranks."""
     detw, deta = grid.detw, grid.deta
     B, nkt, nka, n = micro.ff.shape
 
@@ -101,7 +105,9 @@ def difp(micro, met, turb, grid, dt):
     unscale = torch.cat([one, rho[:, 1:]], dim=1)
     ff = ff * unscale[:, None, None, :]
 
-    fsum = torch.cat([micro.fsum[:, :1], ff[..., 1:].sum(dim=(1, 2))], dim=1)
+    bins = BinShard(nka) if bins is None else bins
+    fsum = bins.sum_bins(ff[..., 1:].sum(dim=(1, 2)))
+    fsum = torch.cat([micro.fsum[:, :1], fsum], dim=1)
     return micro.replace(ff=ff, fsum=fsum)
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import CP, PI, R0, R1, RHOW
+from ..parallel.bins import BinShard
 from . import bott_cuda
 from .thermo import p21
 
@@ -274,7 +275,8 @@ def bott_dwsum(dt, u, z, e, band=BAND):
 # --------------------------------------------------------------------------
 
 def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
-           qabs_kr, sr_coeff, micro, band=BAND, newton_iters=NEWTON_ITERS):
+           qabs_kr, sr_coeff, micro, band=BAND, newton_iters=NEWTON_ITERS,
+           bins=None, info=None):
     """Condensational growth for a block of levels of B columns.
 
     Args:
@@ -289,8 +291,17 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
     column that has stopped keeps its values (the per-column while-loop of
     the vmapped JAX step).  Returns (ffk' [B, L, nkt, nka], to, xm1o,
     done), the last three [B, L].
+
+    ``bins`` (a ``parallel.bins.BinShard``, the whole axis by default)
+    says which dry bins ffk holds: each iteration's water-mass change is
+    its partial sum completed by one all_reduce over the tp ranks, and a
+    level counts as converged only where it converged on every tp rank
+    (a second all_reduce), so every rank takes the same stop decision and
+    makes the same collectives.  ``info``,
+    a dict, gains "iterations": the Newton iterations per column [B].
     """
     B, L, nkt, nka = ffk.shape
+    bins = BinShard(nka) if bins is None else bins
     a0m, b0m = sr_coeff
     e, ew, en, dew, rw = micro.e, micro.ew, micro.en, micro.dew, micro.rw
     dlne = micro.dlne
@@ -367,7 +378,8 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
         if not bool(running.any()):
             break
         u = velocities(fquer)
-        dwsum = bott_dwsum(dt, u, falt_t, e, band).sum(dim=-1)  # [B, L]
+        dwsum = bins.sum_bins(
+            bott_dwsum(dt, u, falt_t, e, band).sum(dim=-1))      # [B, L]
         dmsum = dwsum / rho
         dtsum = xldcp * dmsum
         xm1o_new = xm1n - dmsum
@@ -375,7 +387,7 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
         p1 = xm1o_new * pp / (0.62198 + 0.37802 * xm1o_new)
         feuneu = p1 / p21(to_new)
         res = feuneu + feualt - 2.0 * fquer
-        conv = torch.abs(res) < 1.0e-6
+        conv = bins.all_agree(torch.abs(res) < 1.0e-6)
         dres = res - res_prev
         aa = torch.where((itk[:, None] > 0) & (torch.abs(dres) > 1.0e-8),
                          (fqa - fquer) / dres, aa0)
@@ -395,6 +407,8 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
     # replay: one full advection at each level's converged fquer gives
     # exactly the spectrum the in-loop masked update would have kept
     psi = bott_bin_advection(dt, velocities(fquer_used), falt_t, band)
+    if info is not None:
+        info["iterations"] = itk
     return psi.transpose(2, 3), to, xm1o, done
 
 
@@ -403,7 +417,8 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
 # --------------------------------------------------------------------------
 
 def kon(model, state, dt):
-    """Condensation/evaporation update of levels 1..nf (0-based)."""
+    """Condensation/evaporation update of levels 1..nf (0-based), over
+    the model's dry bins (``model.bins``)."""
     from .microphysics import equil_redistribute
 
     cfg = model.cfg
@@ -412,6 +427,7 @@ def kon(model, state, dt):
     mg = model.micro
     a0m = model.consts["a0m"]
     b0m = model.b0m
+    bins = model.bins
     met, mic = state.met, state.micro
     dtype, device = met.t.dtype, met.t.device
 
@@ -432,7 +448,7 @@ def kon(model, state, dt):
     # Mie absorption efficiencies of the radiation driver, zero without it;
     # the sticky aerosol-type index of the reference (str.f90:5131)
     if model.consts.get("qabs") is None:
-        qabs_kr = torch.zeros((gp.mb, gp.nkt, gp.nka), dtype=dtype,
+        qabs_kr = torch.zeros((gp.mb, gp.nkt, bins.width), dtype=dtype,
                               device=device)
     else:
         kr = int(model.consts.get("nar", [cfg.iaertyp] * n)[1])
@@ -449,7 +465,7 @@ def kon(model, state, dt):
         met.dfddt[:, lo:hi], feu_eff[:, lo:hi], met.p[:, lo:hi],
         met.talt[:, lo:hi], met.t[:, lo:hi], met.xm1a[:, lo:hi],
         met.xm1[:, lo:hi], qabs_kr, (a0m, b0m), mg,
-        band=model.band, newton_iters=model.newton_iters)
+        band=model.band, newton_iters=model.newton_iters, bins=bins)
 
     def back(x_sl, full):
         return torch.cat([full[..., :lo], x_sl, full[..., hi:]], dim=-1)
@@ -473,6 +489,10 @@ def kon(model, state, dt):
     feu = torch.where(moist, feu_moist, feu_eff)
     feu = torch.where(sel, feu, met.feu)
     dfddt = torch.where(moist, (feu_moist - feu_eff) / dt, met.dfddt)
+
+    # the sums over the bins: one all_reduce over the tp ranks
+    fsum = ff.sum(dim=(1, 2))
+    xm2_moist, xm2_eq, fsum = bins.sum_bins(xm2_moist, xm2_eq, fsum)
     xm2 = torch.where(moist, xm2_moist,
                       torch.where(sel & dry, xm2_eq, met.xm2))
 
@@ -486,6 +506,6 @@ def kon(model, state, dt):
 
     met = met.replace(t=t, talt=talt, xm1=xm1, xm1a=xm1a, feu=feu,
                       dfddt=dfddt, xm2=xm2)
-    mic = mic.replace(ff=ff, fsum=ff.sum(dim=(1, 2)),
+    mic = mic.replace(ff=ff, fsum=fsum,
                       lcl=lcl.to(torch.int32), lct=lct.to(torch.int32))
     return state.replace(met=met, micro=mic)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import PI, RHO3, RHOW
+from ..parallel.bins import BinShard
 
 ZRHO_FRAC = RHO3 / RHOW
 Z4PI3 = 4.0e-9 * PI / 3.0
@@ -58,7 +59,8 @@ def equil_redistribute(ff, t, feu, micro_grid, a0m, b0m, level_mask,
     ff [B, nkt, nka, n]; t, feu [B, n]; micro_grid holds the [nka]/[nkt]
     arrays rn, ew, e (taken in ff's dtype and device, a no-op for tensors
     already there); b0m [nka]; level_mask [n] or [B, n].
-    Returns (ff_new, xm2_eq [B, n]).
+    Returns (ff_new, xm2_eq [B, n]), xm2_eq summed over ff's dry bins
+    (a shard's partial sum where ff holds part of the axis).
     """
     def cv(x):
         return torch.as_tensor(x, dtype=ff.dtype, device=ff.device)
@@ -88,12 +90,16 @@ def equil_redistribute(ff, t, feu, micro_grid, a0m, b0m, level_mask,
     return ff_new, xm2_eq
 
 
-def equil(met, micro, micro_grid, a0m, b0m, ncase, nf, level=None):
+def equil(met, micro, micro_grid, a0m, b0m, ncase, nf, level=None,
+          bins=None):
     """Reference-equivalent equil(ncase[, kk]) over a column batch.
 
     ncase 0: levels 1..n-1 at initialisation (clamps feu state to 0.99999).
     ncase 1: single ``level``.
     ncase 2: levels nf..n-1.
+    ``bins`` (a ``parallel.bins.BinShard``, the whole axis by default)
+    says which dry bins ff holds; the sums over the bins (xm2, fsum) take
+    one all_reduce over the tp ranks.
     Returns (met', micro').
     """
     n = met.t.shape[1]
@@ -114,6 +120,8 @@ def equil(met, micro, micro_grid, a0m, b0m, ncase, nf, level=None):
 
     ff_new, xm2_eq = equil_redistribute(micro.ff, met.t, met.feu, micro_grid,
                                         a0m, b0m, mask, collapse=collapse)
+    bins = BinShard(ff_new.shape[2]) if bins is None else bins
+    xm2_eq, fsum_eq = bins.sum_bins(xm2_eq, ff_new.sum(dim=(1, 2)))
     xm2 = torch.where(mask, xm2_eq, met.xm2)
-    fsum = torch.where(mask, ff_new.sum(dim=(1, 2)), micro.fsum)
+    fsum = torch.where(mask, fsum_eq, micro.fsum)
     return met.replace(xm2=xm2), micro.replace(ff=ff_new, fsum=fsum)

@@ -144,6 +144,12 @@ def advsed1(c, y):
 # --------------------------------------------------------------------------
 
 def sedp(model, state, dt):
+    """Settling of ff's bins (the model's ``bins``) on levels 1..nf-1
+    with per-bin Courant splitting; the deposit sums and fsum over the
+    bins take one all_reduce.  The splitting loop runs while a bin of
+    this rank's is active and holds no collective: each bin's update is
+    masked, so a rank's own iteration count leaves its bins as one run
+    over every bin leaves them."""
     cfg = model.cfg
     gp = cfg.grid
     nf, nkt = gp.nf, gp.nkt
@@ -214,16 +220,17 @@ def sedp(model, state, dt):
 
     # surface deposit accounting per column
     x2 = ground * e[:, None] * detw[1]       # [B, nkt, nka] kg water / m2
-    dep_total = x2.sum(dim=(1, 2))
-    surf = state.surf
     jt_idx = torch.arange(nkt, device=ff.device)[:, None]
     small_bin = jt_idx <= (kw[None, :] - 1)  # reference jt<=kw(ia), 1-based
-    ds1 = surf.ds1 + torch.where(small_bin, x2, 0.0).sum(dim=(1, 2))
-    ds2 = surf.ds2 + torch.where(~small_bin, x2, 0.0).sum(dim=(1, 2))
+    dep_total, dep1, dep2, fsum = model.bins.sum_bins(
+        x2.sum(dim=(1, 2)), torch.where(small_bin, x2, 0.0).sum(dim=(1, 2)),
+        torch.where(~small_bin, x2, 0.0).sum(dim=(1, 2)),
+        ff.sum(dim=(1, 2)))
+    surf = state.surf
     surf = surf.replace(ajs=dep_total / dt, trdep=surf.trdep + dep_total,
-                        ds1=ds1, ds2=ds2)
+                        ds1=surf.ds1 + dep1, ds2=surf.ds2 + dep2)
 
-    mic = mic.replace(ff=ff, fsum=ff.sum(dim=(1, 2)))
+    mic = mic.replace(ff=ff, fsum=fsum)
     return state.replace(micro=mic, surf=surf)
 
 

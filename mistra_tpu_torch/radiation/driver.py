@@ -196,21 +196,14 @@ class RadiationDriver:
     # ------------------------------------------------------------------
     def _consts(self, device):
         """The static arrays as tensors of the model's dtype on device,
-        made once per device (the first call runs on the host column, the
-        later ones on the model's device)."""
+        made once per device."""
         key = torch.device(device)
         c = self._tensors.get(key)
         if c is None:
             n = self.gp.n
-            dt = self.dtype
-
-            def t(x):
-                return torch.as_tensor(np.asarray(x), dtype=dt, device=key)
-
+            t = self._tensor_on(key)
             detw, deta = t(self.model.grids.atm.detw), \
                 t(self.model.grids.atm.deta)
-            qa, qe, asy = t(self.qabs_sel), t(self.qext_sel), \
-                t(self.asym_sel)
             c = dict(
                 x0=0.5 * detw[1:n - 1] / deta[1:n - 1],
                 t_up=t(self.t_up), p_up=t(self.p_up), xm1_up=t(self.xm1_up),
@@ -218,10 +211,6 @@ class RadiationDriver:
                 # mic=T the model layers' part is computed per call
                 bea_up=t(self.bea_up), baa_up=t(self.baa_up),
                 ga_up=t(self.ga_up),
-                rq2=t(self.model.grids.micro.rq) ** 2,
-                # absorption, extinction and the asymmetry numerator's
-                # weight, stacked for one contraction with the spectra
-                q3=torch.cat([qa, qe, asy * (qe - qa)]),
                 qmo3_td=t(self.qmo3[::-1].copy()),
                 thk_td=t(self.thk[::-1].copy()),
                 albedo=t(self.albedo), emis=t(self.emis),
@@ -229,10 +218,35 @@ class RadiationDriver:
             self._tensors[key] = c
         return c
 
+    def _optics(self, device, bins):
+        """The particle optics of the dry bins of ``bins`` (a
+        ``parallel.bins.BinShard``) on device, made once per device and
+        bins (the whole axis for the column ``Model.init_state`` builds,
+        the model's bins later): the squared radii rq2 and the
+        absorption, extinction and asymmetry numerator's weight stacked
+        as q3 for one contraction with the spectra."""
+        key = (torch.device(device), bins.lo, bins.hi)
+        c = self._tensors.get(key)
+        if c is None:
+            t = self._tensor_on(key[0])
+            qa, qe, asy = t(self.qabs_sel), t(self.qext_sel), \
+                t(self.asym_sel)
+            c = dict(rq2=bins.take(t(self.model.grids.micro.rq), -1) ** 2,
+                     q3=bins.take(torch.cat([qa, qe, asy * (qe - qa)]), -1))
+            self._tensors[key] = c
+        return c
+
+    def _tensor_on(self, device):
+        def t(x):
+            return torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                                   device=device)
+        return t
+
     def load_profile(self, state):
         """Per-call lower-atmosphere profile + particle optics (load1) of
         every column: tx, px, rhox, xm1x [B, nrlev] bottom-up, ts [B],
-        bea, baa, ga [B, mb, nrlay]."""
+        bea, baa, ga [B, mb, nrlay].  The optics sums over the dry bins of
+        a shard of ff take one all_reduce, before their ratio."""
         n, nrlev = self.gp.n, self.gp.nrlev
         met = state.met
         B = met.t.shape[0]
@@ -256,8 +270,10 @@ class RadiationDriver:
         if not self.model.cfg.mic:
             return (tx, px, rhox, xm1x, ts, *up)
         ff = state.micro.ff[..., 1:n]                     # [B, nkt, nka, n-1]
-        x0p = math.pi * 1.0e-6 * c["rq2"][:, :, None] * ff
-        sums = torch.einsum("qtk,btkz->bqz", c["q3"], x0p)
+        bins = self.model.bins.covering(ff.shape[2])
+        o = self._optics(ff.device, bins)
+        x0p = math.pi * 1.0e-6 * o["rq2"][:, :, None] * ff
+        sums = bins.sum_bins(torch.einsum("qtk,btkz->bqz", o["q3"], x0p))
         baa_low, bea_low, ga_num = sums.chunk(3, dim=1)   # [B, mb, n-1]
         sca = bea_low - baa_low
         ga_low = torch.where(sca > 0.0,

@@ -33,17 +33,26 @@ class _Fields:
     def map(self, fn):
         """fn applied to every tensor; a sub-state that is None (chem
         with chemistry off) stays None."""
-        out = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if v is None:
-                out[f.name] = None
-            else:
-                out[f.name] = v.map(fn) if isinstance(v, _Fields) else fn(v)
-        return type(self)(**out)
+        return self.map_paths(lambda _path, x: fn(x))
 
     def to(self, device):
         return self.map(lambda x: x.to(device))
+
+    def map_paths(self, fn, prefix: str = ""):
+        """fn(path, tensor) applied to every tensor, the path as
+        ``io.checkpoint.flatten_state`` names it ("micro.ff"); a
+        sub-state that is None stays None."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            path = prefix + f.name
+            if v is None:
+                out[f.name] = None
+            elif isinstance(v, _Fields):
+                out[f.name] = v.map_paths(fn, path + ".")
+            else:
+                out[f.name] = fn(path, v)
+        return type(self)(**out)
 
 
 @dataclass
@@ -176,6 +185,29 @@ class ModelState(_Fields):
     tim: TimeState
     # the chemistry state when chem=True, else None
     chem: GasChemState | MultiphaseChemState | None = None
+
+
+# the fields split over the ensemble mesh's "tp" ranks, each on its
+# dry-aerosol axis (this axis, the column axis counted): ff, and the
+# deposition velocities that partdep computes per bin of ff
+BIN_FIELDS = {"micro.ff": 2, "micro.vd": 2}
+
+
+def join_states(states, fn, prefix: str = ""):
+    """One state from states of one structure: fn(path, [tensors]) for
+    every field (paths as in ``_Fields.map_paths``)."""
+    first = states[0]
+    out = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(s, f.name) for s in states]
+        path = prefix + f.name
+        if vals[0] is None:
+            out[f.name] = None
+        elif isinstance(vals[0], _Fields):
+            out[f.name] = join_states(vals, fn, path + ".")
+        else:
+            out[f.name] = fn(path, vals)
+    return type(first)(**out)
 
 
 _SUBSTATES = {"met": MetState, "turb": TurbState, "surf": SurfaceState,

@@ -1,18 +1,25 @@
 """``parallel.mesh``: an ensemble of four columns split over two devices
 (here ``["cpu", "cpu"]``, one ``Model`` replica each) equals the batched
-run of one model bit for bit over two minutes; tp > 1 raises, naming the
-ROADMAP item; a single process needs no distributed set-up, and more
-than one raises, naming the same item."""
+run of one model bit for bit over two minutes; tp > 1 in one process
+raises, and a Model refuses the bins of a tp rank where its path is not
+split over them (the rest of the tp > 1 tests:
+``test_torch_mesh_tp.py``); a single process needs no distributed
+set-up, and two spawned processes join one gloo group, while a request
+that names no backend raises."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import pytest
 import torch
 
 import mistra_tpu_torch as pt
 from _torch_parity import configs, foggy, make_models, to_port_columns
+from _torch_ranks import rank_join, spawn
 from mistra_tpu_torch.io.checkpoint import flatten_state
 from mistra_tpu_torch.parallel import mesh
+from mistra_tpu_torch.parallel.bins import BinShard
 
 
 def test_ensemble_over_two_devices_equals_one_batched_run(tmp_path):
@@ -51,11 +58,15 @@ def test_split_and_join_columns(tmp_path):
         assert torch.equal(v, flatten_state(back)[k])
 
 
-def test_tp_above_one_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_tp_above_one_raises(tmp_path):
+    with pytest.raises(ValueError, match="init_distributed"):
         mesh.make_mesh(devices=["cpu", "cpu"], tp=2)
-    with pytest.raises(NotImplementedError, match="tp > 1"):
-        mesh.make_ensemble_step(lambda d: None, ["cpu", "cpu"], tp=2)
+    _, tcfg = configs(tmp_path, radiation=False)
+    tcfg = dataclasses.replace(tcfg, chem=True, nkc_l=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.Model(tcfg, device="cpu", bins=BinShard.split(16, 2, 1))
+    with pytest.raises(ValueError, match="must divide nka"):
+        BinShard.split(16, 3, 0)
 
 
 def test_init_distributed_single_process_noop():
@@ -63,6 +74,12 @@ def test_init_distributed_single_process_noop():
     assert mesh.init_distributed(num_processes=1) is False
 
 
-def test_init_distributed_several_processes_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_init_distributed_several_processes_raises(tmp_path):
+    # no backend named: raises before it joins anything
+    with pytest.raises(ValueError, match="name the backend"):
         mesh.init_distributed("tcp://localhost:29500", 2, 0)
+    # two spawned processes join one gloo group; joining again is a no-op
+    ranks = spawn(rank_join, 2, tmp_path, str(tmp_path), timeout=60.0)
+    assert [(r["rank"], r["world"], r["backend"], r["again"])
+            for r in ranks] == [(0, 2, "gloo", True), (1, 2, "gloo", True)]
+    assert not any(r["jax_imported"] for r in ranks)

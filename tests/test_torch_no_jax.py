@@ -5,7 +5,8 @@ gas-phase and multiphase chemistry drivers, the aqueous stack beneath
 them, the stiff-cell report, the soil surface, nucleation, the box
 and chamber modes and the run harness (the CLI, checkpoints, the output
 writers and profiles, the chemistry diagnostics, the projection,
-profiling and the ensemble mesh), and finds no jax module."""
+profiling and the ensemble mesh with its split of the dry bins), and
+finds no jax module."""
 
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
     "mistra_tpu_torch.chemistry.diagnostics",
     "mistra_tpu_torch.physics.projection",
     "mistra_tpu_torch.utils.profiling",
-    "mistra_tpu_torch.parallel.mesh"])
+    "mistra_tpu_torch.parallel.mesh", "mistra_tpu_torch.parallel.bins"])
 def test_port_imports_no_jax(module):
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

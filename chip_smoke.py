@@ -57,7 +57,7 @@ Phases (any failure exits non-zero):
      float32;
  10. multiphase minute: the settings of benchmarks/smoke_tot_full.py:51-54
      (BTZ96 with chem=True, nkc_l=4, halo=True, iod=False; float32 state,
-     the tot solve in float64) at the production grid for 16 columns, half
+     the tot solve in float64) at the production grid for 4 columns, half
      at 00:00 and half at 12:00, two minutes with every kernel's launch
      counter read around them; liq_parm alone; the inverse at the path's
      own shapes and dtypes (the tot solve's aqueous blocks and gas core in
@@ -118,15 +118,26 @@ Phases (any failure exits non-zero):
      processes joined by torch.distributed (nccl with a card each where
      the host has two cards, else gloo with both ranks on cuda:0; the
      log says which): (a) BTZ96 and (b) chem=T at the production grid,
-     float32, 16 columns (half at noon for chem=T), two minutes, each
+     float32, 8 columns (half at noon for chem=T), two minutes, each
      rank's launches (dwsum equal to a tp=1 run's on the same state,
      advect once per substep, the inverse on every rank), all_reduce
      calls and host ms per minute and minute time beside the tp=1 run's;
      (c) a noon and a midnight column in float64, one minute, shared out
      from tp=1's start state, gathered and held against tp=1 at phase
-     4's tolerances; the replicated fields bit-equal across the ranks
-     (gather_state checks them in every run).  A rank that fails or
-     outlives its deadline fails the script.
+     4's tolerances; (d) the multiphase minute of phase 10 (float32
+     state, float64 tot solve) for 4 columns, half at noon, two minutes
+     at tp=2 beside phase 10's tp=1 run, each rank's launches as (a)'s
+     and (b)'s (dwsum within one Newton iteration per substep), its
+     all_reduce calls, bytes and host ms per minute (the mass feedback
+     brings its targets home with one all_reduce of the whole dry axis
+     per chemistry bin) and its minute beside tp=1's; (e) as (c) on the
+     tiny grid of phases 11 and 15 with their small stand-ins, for the
+     multiphase minute, nucleation with the gas-phase and with the
+     multiphase driver (ifeed=1), the box and the chamber, each
+     concentration row held to its species' scale; the replicated
+     fields bit-equal across the ranks (gather_state checks them in
+     every run).  A rank that fails or outlives its deadline fails the
+     script.
 
 The input tables of phases 3-4b and 8-9 are the reference's where $INPDIR
 holds them (clarke.dat; pifm2_171115.dat with the six Mie files;
@@ -276,11 +287,14 @@ CHEM_T_DEVICE_TOL = {"t": 1e-6, "xm1": 1e-6, "ff": 1e-5, "sgas": 1e-2,
 # benchmarks/smoke_tot_full.py:51-54; the state in float32 and, by
 # chem_f64's default, the tot solve in float64
 MULTIPHASE = dict(BTZ96, chem=True, nkc_l=4, halo=True, iod=False)
-# 16: with 64 the whole script took 990.8 s of command time on an H100
+# 4: with 64 the whole script took 990.8 s of command time on an H100
 # 80GB HBM3 at 700 W, the multiphase minute being device-bound (84 % busy:
 # 32 columns take about half its time); with 32 it took 927.7 s, and the
 # run harness (phase 16) takes ~105 s more; with 16 the script took 947.1 s
-MP_COLUMNS = 16
+# before phase 17 (d), whose tp=1 run is this phase's; with 8 (a steady
+# minute of 11.6 s at tp=1, 19.9 s on each tp=2 rank) it took 1,027.3 s,
+# phase 10 180.8 s of it (mostly the profiled minute's 693,440 events)
+MP_COLUMNS = 4
 MP_MINUTES = 2
 LIQ_PARM_REPS = 3
 # the reference's tot mechanism files, which $MECHDIR may hold
@@ -372,12 +386,21 @@ CLI_GRID = None
 
 # the tp split (phase 17): ff's dry-aerosol axis over TP ranks, one
 # spawned process each; (a) BTZ96 and (b) chem=T at the production grid
-# in float32, TP_COLUMNS columns, TP_MINUTES minutes, and (c) BTZ96 and
+# in float32, TP_COLUMNS columns, TP_MINUTES minutes, (c) BTZ96 and
 # chem=T, a noon and a midnight column each, in float64 for one minute
-# against tp=1 on the same card
+# against tp=1 on the same card, (d) the multiphase minute at the
+# production grid for MP_COLUMNS columns (its tp=1 run phase 10's), and
+# (e) the multiphase minute, nucleation with both drivers, the box and
+# the chamber as (c) on the tiny grid of phases 11 and 15
 TP = 2
-TP_COLUMNS = 16
+TP_COLUMNS = 8
 TP_MINUTES = 2
+# (d) in float32: subkon's Newton exit test reads sums over the bins,
+# whose order differs between tp=2 and tp=1, and the float32 states part
+# by rounding; on the card dwsum launched 93 times against 92 at 8
+# columns and 84 against 89 at 4; the ranks' counts stay equal (they stop
+# on agreed flags), and tp=1's may differ by one iteration per substep
+TP_MP_NEWTON_FLIPS = 6 * TP_MINUTES
 # a rank's collectives wait at most this long on the other rank; the
 # parent waits at most TP_JOIN_S for both ranks to end
 TP_COLLECTIVE_TIMEOUT_S = 120.0
@@ -393,7 +416,15 @@ TP_FIELDS = ("met.t", "met.xm1", "micro.ff", "rad.dtrad", "rad.totrad",
              "rad.sk", "rad.sl")
 # the chem=T fields compared per row (species, J slot), each to its own
 # largest magnitude
-TP_ROWS = ("chem.sgas", "chem.photol_j")
+TP_ROWS = ("chem.sgas", "chem.conc", "chem.photol_j")
+# (e): the paths and their mechanisms (the small stand-ins of phases 11
+# and 15); nucleation with the multiphase driver with the feedback of
+# its particles (ifeed=1) for one minute, where rounding moves no trace
+# (phase 15's two minutes run ifeed=0)
+TP_PATHS = {"multiphase": ("tot", MULTIPHASE),
+            "nucleation": ("gas", NUC),
+            "nucleation nkc_l=4": ("tot", dict(NUC_MULTIPHASE, ifeed=1)),
+            "box": ("tot", BOX), "chamber": ("gas", CHAMBER)}
 
 
 def log(msg: str) -> None:
@@ -2245,20 +2276,44 @@ def tp_run(model, m, state, kernels, bott_cuda, lu_cuda):
     model.bins.reset_counts()
     state, times, counts, solves = run_minutes(
         step, state, TP_MINUTES, kernels, bott_cuda, lu_cuda)
-    calls, seconds = model.bins.calls, model.bins.seconds
+    b = model.bins
+    calls, seconds, nbytes = b.calls, b.seconds, b.bytes
     check_state(state, f"tp rank {m.rank}")
     fig = minute_figures(state.met.t.shape[0], times, counts,
                          loop_iterations(solves), None)
     fig.update(allreduce_calls=calls,
                allreduce_per_minute=calls / TP_MINUTES,
+               allreduce_bytes_per_minute=nbytes / TP_MINUTES,
                allreduce_host_ms_per_minute=1e3 * seconds / TP_MINUTES)
     return state, fig
 
 
+def tp_compare_runs(cmp, m, model_of):
+    """Each of cmp's {what: (cfg, flattened global start state)} one
+    minute through the ensemble step of mesh m on this rank's share;
+    returns {what: {"allreduce_calls", "gathered" (rank 0 only)}}
+    (gather_state raises unless the replicated fields agree across the
+    ranks)."""
+    from mistra_tpu_torch.io.checkpoint import flatten_state
+    from mistra_tpu_torch.parallel import mesh
+    out = {}
+    for what, (cfg, flat) in cmp.items():
+        model, stepper = model_of(cfg)
+        start = stepper.init_state(1).map_paths(lambda p, _x: flat[p])
+        model.bins.reset_counts()
+        state = mesh.make_ensemble_step(stepper, m)(
+            mesh.shard_state(start, m))
+        end = mesh.gather_state(state, m)
+        out[what] = {"allreduce_calls": model.bins.calls,
+                     "gathered": flatten_state(end) if m.rank == 0
+                     else None}
+    return out
+
+
 def tp_rank(rank, job):
     """One rank of phase 17 (a spawned process; the mesh is dp = 1, tp =
-    TP): joins the process group, runs (a), (b) and (c) on its share and
-    writes its figures, and rank 0 the gathered end state of (c), to
+    TP): joins the process group, runs (a)-(e) on its share and writes
+    its figures, and rank 0 the gathered end states of (c) and (e), to
     job["out"]/rank<r>.pt; a traceback to rank<r>.err where it fails
     (then exits non-zero)."""
     import traceback
@@ -2266,9 +2321,8 @@ def tp_rank(rank, job):
     import torch.distributed as dist
     out = os.path.join(job["out"], f"rank{rank}")
     try:
-        from mistra_tpu_torch import Model
+        from mistra_tpu_torch import BoxModel, Model
         from mistra_tpu_torch.chemistry import lu_cuda
-        from mistra_tpu_torch.io.checkpoint import flatten_state
         from mistra_tpu_torch.kernels import build
         from mistra_tpu_torch.parallel import mesh
         from mistra_tpu_torch.physics import bott_cuda
@@ -2283,35 +2337,42 @@ def tp_rank(rank, job):
         torch.cuda.set_device(m.device)
 
         def model_of(cfg):
-            return Model(cfg, device=m.device, bins=m.bins(cfg.grid.nka))
+            """(Model, stepper): the BoxModel's for a box or chamber."""
+            bins = m.bins(cfg.grid.nka)
+            if cfg.box or cfg.chamber:
+                box = BoxModel(cfg, device=m.device, bins=bins)
+                return box.model, box
+            model = Model(cfg, device=m.device, bins=bins)
+            return model, model
 
         # (a), (b): the initial state of this rank's bins (init_state
         # builds the whole column and cuts it); gather_state raises unless
         # the replicated fields agree across the ranks
-        model = model_of(job["btz96"])
+        model, _ = model_of(job["btz96"])
         res = {"device": str(m.device), "bins": (model.bins.lo,
                                                  model.bins.hi)}
         state, res["a"] = tp_run(model, m, model.init_state(TP_COLUMNS), (),
                                  bott_cuda, lu_cuda)
         mesh.gather_state(state, m)
-        model = model_of(job["chem_t"])
+        model, _ = model_of(job["chem_t"])
         state = midnight_and_noon(model, TP_COLUMNS)
         state, res["b"] = tp_run(model, m, state, (model._chemistry.kernel,),
                                  bott_cuda, lu_cuda)
         res["b"]["nonconv"] = int(state.chem.nonconv.sum())
         mesh.gather_state(state, m)
-        # (c): the parent's global start states, shared out
-        res["c"] = {}
-        for what, (cfg, flat) in job["cmp"].items():
-            model = model_of(cfg)
-            start = model.init_state(1).map_paths(lambda p, _x: flat[p])
-            model.bins.reset_counts()
-            state = mesh.make_ensemble_step(model, m)(
-                mesh.shard_state(start, m))
-            end = mesh.gather_state(state, m)
-            res["c"][what] = {"allreduce_calls": model.bins.calls,
-                              "gathered": flatten_state(end)
-                              if rank == 0 else None}
+        # (d): the multiphase minute, both Ros3 solves counted
+        model, _ = model_of(job["multiphase"])
+        state = midnight_and_noon(model, MP_COLUMNS)
+        drv = model._chemistry
+        state, res["d"] = tp_run(model, m, state,
+                                 (drv.tot_kernel, drv.kernel), bott_cuda,
+                                 lu_cuda)
+        res["d"]["nonconv"] = int(state.chem.nonconv.sum())
+        mesh.gather_state(state, m)
+        del model, drv, state
+        # (c), (e): the parent's global start states, shared out
+        res["c"] = tp_compare_runs(job["cmp"], m, model_of)
+        res["e"] = tp_compare_runs(job["cmp_e"], m, model_of)
         torch.cuda.synchronize()
         torch.save(res, out + ".pt")
     except BaseException:
@@ -2353,22 +2414,99 @@ def spawn_tp_ranks(job) -> list:
                        weights_only=False) for r in range(TP)]
 
 
-def phase_tp(inpdir, gasdir, bott_cuda, lu_cuda):
-    """The tp split on the card: the paths of (a), (b) and (c) at tp=1 in
-    this process, then at tp=TP in spawned ranks on the backend of
-    ``tp_backend``; checks each rank's launches against tp=1, (c)'s
-    gathered states against tp=1 at TP_TOL and the replicated fields
-    bit-equal across the ranks (``gather_state`` raises otherwise).
-    Returns the figures."""
-    from mistra_tpu_torch import Model
+def tp_start_states(cfgs):
+    """{what: (cfg, flattened global start state on the CPU)} and {what:
+    its end after one tp=1 minute on the card} of cfgs {what: cfg}: two
+    columns (a midnight and a noon one; chambers from CHAMBER_START_S)."""
+    from mistra_tpu_torch import BoxModel, Model
     from mistra_tpu_torch.io.checkpoint import flatten_state
+    cmp, ref_end = {}, {}
+    for what, cfg in cfgs.items():
+        if cfg.box or cfg.chamber:
+            stepper = BoxModel(cfg, device=DEVICE)
+            start = box_state(stepper, 2)
+        else:
+            stepper = Model(cfg, device=DEVICE)
+            start = midnight_and_noon(stepper)
+        cmp[what] = (cfg, {k: v.cpu()
+                           for k, v in flatten_state(start).items()})
+        ref_end[what] = {k: v.cpu() for k, v in
+                         flatten_state(stepper.minute_step(start)).items()}
+    return cmp, ref_end
+
+
+def tp_check_launches(r, what, fig, tp1, newton_flips=0):
+    """Rank r's launches in a minute run of phase 17: dwsum as tp=1's,
+    give or take newton_flips (subkon's Newton loop launches it once per
+    iteration, and its exit test reads sums over the bins whose order
+    differs from tp=1's), advect once per substep, the inverse twice per
+    Ros3 iteration of the rank's own (replicated) solves."""
+    la, l1 = fig["launches"], tp1["launches"]
+    check(abs(la["bott_dwsum"] - l1["bott_dwsum"]) <= newton_flips,
+          f"tp rank {r} {what}: dwsum {la['bott_dwsum']} launches, tp=1 "
+          f"{l1['bott_dwsum']} (at most {newton_flips} apart)")
+    check(la["bott_advect"] == 6 * TP_MINUTES,
+          f"tp rank {r} {what}: advect {la['bott_advect']}")
+    check(la["batched_inv"] == 2 * fig["ros3_iterations"],
+          f"tp rank {r} {what}: batched_inv {la['batched_inv']} for "
+          f"{fig['ros3_iterations']} Ros3 iterations")
+    check(fig["allreduce_calls"] > 0, f"tp rank {r} {what}: no all_reduce")
+
+
+def tp_log_rank(fig, tp1):
+    """A rank's figures of a minute run beside tp=1's."""
+    return (f"minute {[round(t, 1) for t in fig['minute_ms']]} ms, "
+            f"steady {fig['steady_minute_ms']:.1f} (tp=1 "
+            f"{[round(t, 1) for t in tp1['minute_ms']]}, steady "
+            f"{tp1['steady_minute_ms']:.1f}), launches {fig['launches']} "
+            f"(tp=1 {tp1['launches']}), {fig['ros3_iterations']} Ros3 "
+            f"iterations (tp=1 {tp1['ros3_iterations']}), nonconv "
+            f"{fig['nonconv']} (tp=1 {tp1['nonconv']}), all_reduce "
+            f"{fig['allreduce_per_minute']:.1f} per minute, "
+            f"{fig['allreduce_bytes_per_minute'] / 1e6:.3f} MB and "
+            f"{fig['allreduce_host_ms_per_minute']:.2f} host ms per minute")
+
+
+def tp_compare(what, want, got, calls, part):
+    """(c)/(e): the gathered end state of one path against tp=1 at
+    TP_TOL, every rank with the same all_reduce calls; returns the
+    figures."""
+    paths = tuple(p for p in TP_FIELDS + TP_ROWS if p in want)
+    errs = {p: tp_rel_err(want[p], got[p], rows=p in TP_ROWS)
+            for p in paths}
+    for p, e in errs.items():
+        check(e <= TP_TOL, f"{what} ({part}) tp={TP} vs tp=1 {p}: "
+              f"{e:.3e} > {TP_TOL}")
+    bit_equal = [k for k in want if torch.equal(want[k], got[k])]
+    check(calls[0] > 0 and len(set(calls)) == 1,
+          f"{what} ({part}): all_reduce calls {calls}")
+    log(f"{what} ({part}) tp={TP} vs tp=1 on the card ({card_line()}; 2 "
+        f"columns, float64, 1 minute, gathered from the ranks; the "
+        f"replicated fields bit-equal across the ranks) max rel err: "
+        + ", ".join(f"{p} {e:.3e}" for p, e in errs.items())
+        + f"; {len(bit_equal)} of {len(want)} fields bit-equal to tp=1"
+        f"; {calls[0]} all_reduce calls per rank")
+    return {"max_rel_err": errs, "fields_bit_equal_to_tp1": len(bit_equal),
+            "fields": len(want), "allreduce_calls": calls}
+
+
+def phase_tp(inpdir, gasdir, totdir, bott_cuda, lu_cuda, mp_tp1=None):
+    """The tp split on the card: the paths of (a)-(e) at tp=1 in this
+    process (for (d) phase 10's figures, mp_tp1, where given), then at
+    tp=TP in spawned ranks on the backend of ``tp_backend``; checks each
+    rank's launches against tp=1, (c)'s and (e)'s gathered states
+    against tp=1 at TP_TOL and the replicated fields bit-equal across
+    the ranks (``gather_state`` raises otherwise).  Returns the
+    figures."""
+    from mistra_tpu_torch import GridParams, Model
+    from mistra_tpu_torch.chemistry.mech import (
+        write_synthetic_gas_mechanism, write_synthetic_tot_mechanism)
     backend, devices = tp_backend(), tp_devices()
     log(f"phase 17: tp={TP} ranks on {devices} over {backend} "
         f"({torch.cuda.device_count()} cards visible)")
     cfgs = {"btz96": model_config(inpdir, "float32"),
-            "chem_t": chem_t_config(inpdir, gasdir, "float32")}
-    cmp_cfgs = {"BTZ96": model_config(inpdir, "float64"),
-                "chem=T": chem_t_config(inpdir, gasdir, "float64")}
+            "chem_t": chem_t_config(inpdir, gasdir, "float32"),
+            "multiphase": multiphase_config(inpdir, totdir, "float32")}
     ref = {}
     model = Model(cfgs["btz96"], device=DEVICE)
     _, times, counts, _ = run_minutes(
@@ -2383,83 +2521,84 @@ def phase_tp(inpdir, gasdir, bott_cuda, lu_cuda):
     ref["b"] = minute_figures(TP_COLUMNS, times, counts,
                               loop_iterations(solves),
                               int(state.chem.nonconv.sum()))
-    cmp, ref_end = {}, {}
-    for what, cfg in cmp_cfgs.items():
-        model = Model(cfg, device=DEVICE)
-        start = midnight_and_noon(model)
-        cmp[what] = (cfg, {k: v.cpu()
-                           for k, v in flatten_state(start).items()})
-        ref_end[what] = {k: v.cpu() for k, v in
-                         flatten_state(model.minute_step(start)).items()}
+    ref["d"] = mp_tp1
+    check(mp_tp1 is None or (mp_tp1["minutes"], mp_tp1["columns"])
+          == (TP_MINUTES, MP_COLUMNS), "phase 10's run is not (d)'s tp=1")
+    if mp_tp1 is None:
+        model = Model(cfgs["multiphase"], device=DEVICE)
+        state = midnight_and_noon(model, MP_COLUMNS)
+        drv = model._chemistry
+        state, times, counts, solves = run_minutes(
+            model.minute_step, state, TP_MINUTES,
+            (drv.tot_kernel, drv.kernel), bott_cuda, lu_cuda)
+        check_state(state, "tp=1 multiphase minute")
+        ref["d"] = minute_figures(MP_COLUMNS, times, counts,
+                                  loop_iterations(solves),
+                                  int(state.chem.nonconv.sum()))
+        check_launches("tp=1 multiphase minute", counts,
+                       ref["d"]["ros3_iterations"], bott=True,
+                       minutes=TP_MINUTES)
+        del model, drv, state
+    cmp, ref_end = tp_start_states(
+        {"BTZ96": model_config(inpdir, "float64"),
+         "chem=T": chem_t_config(inpdir, gasdir, "float64")})
     torch.cuda.synchronize()
 
+    chamber_dat_dir(inpdir)
     with tempfile.TemporaryDirectory(prefix="mistra_tp_") as tmp:
+        mech = {"gas": os.path.join(tmp, "gas"),
+                "tot": os.path.join(tmp, "tot")}
+        for d in mech.values():
+            os.makedirs(d)
+        write_synthetic_gas_mechanism(mech["gas"], MODES_CMP_GAS)
+        write_synthetic_tot_mechanism(mech["tot"], *MP_CMP_MECH)
+        cmp_e, ref_end_e = tp_start_states({
+            what: path_config(inpdir, mech[kind], dict(settings, zinv=100.0),
+                              "float64", GridParams(**MP_CMP_GRID))
+            for what, (kind, settings) in TP_PATHS.items()})
+        torch.cuda.synchronize()
         job = dict(cfgs, backend=backend, devices=devices, out=tmp,
-                   init=f"file://{tmp}/init", cmp=cmp)
+                   init=f"file://{tmp}/init", cmp=cmp, cmp_e=cmp_e)
         ranks = spawn_tp_ranks(job)
 
     out = {"backend": backend, "devices": devices, "tp": TP,
-           "columns": TP_COLUMNS, "minutes": TP_MINUTES, "tp1": ref,
-           "ranks": []}
+           "columns": TP_COLUMNS, "multiphase_columns": MP_COLUMNS,
+           "minutes": TP_MINUTES, "tp1": ref, "ranks": []}
     for r, res in enumerate(ranks):
-        a, b = res["a"], res["b"]
-        for what, fig, tp1 in (("BTZ96", a, ref["a"]), ("chem=T", b,
-                                                          ref["b"])):
-            la, l1 = fig["launches"], tp1["launches"]
-            check(la["bott_dwsum"] == l1["bott_dwsum"],
-                  f"tp rank {r} {what}: dwsum {la['bott_dwsum']} launches, "
-                  f"tp=1 {l1['bott_dwsum']}")
-            check(la["bott_advect"] == 6 * TP_MINUTES,
-                  f"tp rank {r} {what}: advect {la['bott_advect']}")
-            check(fig["allreduce_calls"] > 0, f"tp rank {r}: no all_reduce")
-        check(b["launches"]["batched_inv"] == 2 * b["ros3_iterations"] > 0,
-              f"tp rank {r} chem=T: batched_inv {b['launches']} for "
-              f"{b['ros3_iterations']} Ros3 iterations")
+        a, b, d = res["a"], res["b"], res["d"]
+        log(f"tp rank {r} ({res['device']}, dry bins {res['bins']}): "
+            f"BTZ96 {TP_COLUMNS} columns float32 "
+            + tp_log_rank(a, ref["a"])
+            + f"; chem=T {TP_COLUMNS} columns "
+            + tp_log_rank(b, ref["b"])
+            + f"; multiphase {MP_COLUMNS} columns (float32 state, float64 "
+            f"tot) " + tp_log_rank(d, ref["d"]))
+        for what, fig, tp1, flips in (
+                ("BTZ96", a, ref["a"], 0), ("chem=T", b, ref["b"], 0),
+                ("multiphase", d, ref["d"], TP_MP_NEWTON_FLIPS)):
+            tp_check_launches(r, what, fig, tp1, flips)
+        check(b["ros3_iterations"] > 0 and d["ros3_iterations"] > 0,
+              f"tp rank {r}: no Ros3 iterations")
         check(a["launches"]["batched_inv"] == 0, f"tp rank {r}: BTZ96 "
               "launched the inverse")
-        for k in ("launches", "allreduce_calls", "ros3_iterations"):
-            check(a[k] == ranks[0]["a"][k] and b[k] == ranks[0]["b"][k],
+        for k in ("launches", "allreduce_calls", "allreduce_bytes_per_minute",
+                  "ros3_iterations", "nonconv"):
+            check(all(x[k] == ranks[0][p][k] for p, x in
+                      (("a", a), ("b", b), ("d", d))),
                   f"tp ranks 0 and {r} differ in {k}")
         out["ranks"].append({"rank": r, "device": res["device"],
-                             "bins": res["bins"], "btz96": a, "chem_t": b})
-        log(f"tp rank {r} ({res['device']}, dry bins {res['bins']}): "
-            f"BTZ96 {TP_COLUMNS} columns float32 minute "
-            f"{[round(t, 1) for t in a['minute_ms']]} ms (tp=1 "
-            f"{[round(t, 1) for t in ref['a']['minute_ms']]}), launches "
-            f"{a['launches']} (tp=1 {ref['a']['launches']}), all_reduce "
-            f"{a['allreduce_per_minute']:.1f} per minute, "
-            f"{a['allreduce_host_ms_per_minute']:.2f} host ms per minute; "
-            f"chem=T minute {[round(t, 1) for t in b['minute_ms']]} ms "
-            f"(tp=1 {[round(t, 1) for t in ref['b']['minute_ms']]}), "
-            f"launches {b['launches']} (tp=1 {ref['b']['launches']}), "
-            f"{b['ros3_iterations']} Ros3 iterations (tp=1 "
-            f"{ref['b']['ros3_iterations']}), nonconv {b['nonconv']} (tp=1 "
-            f"{ref['b']['nonconv']}), all_reduce "
-            f"{b['allreduce_per_minute']:.1f} per minute, "
-            f"{b['allreduce_host_ms_per_minute']:.2f} host ms per minute")
+                             "bins": res["bins"], "btz96": a, "chem_t": b,
+                             "multiphase": d})
 
-    out["cmp"] = {}
-    for what, want in ref_end.items():
-        got = ranks[0]["c"][what]["gathered"]
-        paths = TP_FIELDS + tuple(p for p in TP_ROWS if p in want)
-        errs = {p: tp_rel_err(want[p], got[p], rows=p in TP_ROWS)
-                for p in paths}
-        for p, e in errs.items():
-            check(e <= TP_TOL, f"{what} tp={TP} vs tp=1 {p}: {e:.3e} > "
-                  f"{TP_TOL}")
-        bit_equal = [k for k in want if torch.equal(want[k], got[k])]
-        calls = [r["c"][what]["allreduce_calls"] for r in ranks]
-        check(calls[0] > 0 and len(set(calls)) == 1,
-              f"{what} (c): all_reduce calls {calls}")
-        log(f"{what} tp={TP} vs tp=1 on the card ({card_line()}; 2 columns "
-            f"at 00:00 and 12:00, float64, 1 minute, gathered from the "
-            f"ranks; the replicated fields bit-equal across the ranks) max "
-            f"rel err: " + ", ".join(f"{p} {e:.3e}" for p, e in errs.items())
-            + f"; {len(bit_equal)} of {len(want)} fields bit-equal to tp=1"
-            f"; {calls[0]} all_reduce calls per rank")
-        out["cmp"][what] = {"max_rel_err": errs,
-                            "fields_bit_equal_to_tp1": len(bit_equal),
-                            "fields": len(want), "allreduce_calls": calls}
+    out["cmp"] = {what: tp_compare(what, want, ranks[0]["c"][what]["gathered"],
+                                   [r["c"][what]["allreduce_calls"]
+                                    for r in ranks], "c")
+                  for what, want in ref_end.items()}
+    out["cmp_tiny"] = {
+        what: tp_compare(what, want, ranks[0]["e"][what]["gathered"],
+                         [r["e"][what]["allreduce_calls"] for r in ranks],
+                         "e")
+        for what, want in ref_end_e.items()}
     return out
 
 
@@ -2624,7 +2763,8 @@ def main() -> int:
             "phase 15", phase_modes_device_vs_cpu, inpdir)
         main["cli"] = timed("phase 16", phase_cli, inpdir, totdir)
         main["tp_split"] = tp = timed("phase 17", phase_tp, inpdir, gasdir,
-                                      bott_cuda, lu_cuda)
+                                      totdir, bott_cuda, lu_cuda,
+                                      main["multiphase_minute"])
     # each kernel's launches on the modes slice's paths (phases 12-14)
     mode_counts = {"nucleation": nuc_counts, "box": box_counts["box"],
                    "chamber": box_counts["chamber"],
@@ -2651,11 +2791,15 @@ def main() -> int:
                         for p, c in mode_counts.items()},
                      "launches_cli": main["cli"]["a"]["launches"][name],
                      "launches_cli_chem": main["cli"]["c"]["launches"][name],
-                     # per tp rank: BTZ96 (phase 17 a), chem=T (b)
+                     # per tp rank: BTZ96 (phase 17 a), chem=T (b),
+                     # multiphase (d)
                      "launches_tp": [r["btz96"]["launches"][name]
                                      for r in tp["ranks"]],
                      "launches_tp_chem_t": [r["chem_t"]["launches"][name]
                                             for r in tp["ranks"]],
+                     "launches_tp_multiphase": [
+                         r["multiphase"]["launches"][name]
+                         for r in tp["ranks"]],
                      **kernels[name]})
     # the main path's calls: float64 stage matrices, the aqueous blocks
     # and the Schur complement (one of each per Ros3 step attempt)
@@ -2704,9 +2848,12 @@ def main() -> int:
         **{f"launches_{p}": c["batched_inv"] for p, c in mode_counts.items()},
         "launches_cli": main["cli"]["a"]["launches"]["batched_inv"],
         "launches_cli_chem": main["cli"]["c"]["launches"]["batched_inv"],
-        # per tp rank, the chem=T minute of phase 17 (b)
+        # per tp rank, the chem=T minute of phase 17 (b) and the
+        # multiphase minute (d)
         "launches_tp": [r["chem_t"]["launches"]["batched_inv"]
                         for r in tp["ranks"]],
+        "launches_tp_multiphase": [r["multiphase"]["launches"]["batched_inv"]
+                                   for r in tp["ranks"]],
         "box_minute": {
             "launches_per_ros3_iteration":
                 box_counts["box"]["batched_inv"]

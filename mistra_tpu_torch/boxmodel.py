@@ -109,8 +109,10 @@ class BoxModel:
       cfg: a configuration with box=True or chamber=True.
       device: the ``Model`` the box owns runs there (the card by default;
         "cpu" runs the plain versions).
-      bins: the model's dry bins (``Model``'s argument): the box modes
-        run on the whole axis only, and part of it raises.
+      bins: the model's dry bins (``Model``'s argument, the whole axis
+        by default): with part of the axis, one rank of the ensemble
+        mesh's "tp" axis, every sum over the bins takes an all_reduce
+        over the tp ranks.
     """
 
     def __init__(self, cfg, device="cuda", bins=None):
@@ -176,7 +178,7 @@ class BoxModel:
             # equil(1, n_bl) after resetting T/rh, str.f90:6846/7897)
             met, micro = microphysics.equil(
                 met, state.micro, m.micro, m.consts["a0m"], m.b0m, 1,
-                cfg.grid.nf, level=N_BL)
+                cfg.grid.nf, level=N_BL, bins=m.bins)
             state = state.replace(micro=micro)
         tim = state.tim.replace(kinv=torch.full_like(state.tim.kinv,
                                                      cfg.grid.nf))
@@ -224,7 +226,8 @@ class BoxModel:
         ff = micro.ff.clone()
         ff[..., N_BL] = ff_new
         ff[..., 0] = ff[..., 0] + (ff_old - ff_new) * self.z_box
-        micro = micro.replace(ff=ff, fsum=torch.sum(ff, dim=(1, 2)))
+        micro = micro.replace(ff=ff, fsum=self.model.bins.sum_bins(
+            torch.sum(ff, dim=(1, 2))))
         state = state.replace(micro=micro)
         return self.model._chemistry.box_dissolved_deposition(
             state, dt, N_BL, self.z_box)

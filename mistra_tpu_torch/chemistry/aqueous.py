@@ -137,24 +137,28 @@ def bin_masks(micro_grid):
 def bin_sums(ff, weight, masks):
     """sum over the spectrum of ff * weight within each chemistry bin:
     ff [B, nkt, nka, n], weight broadcastable to [nkt, nka], masks [nkt,
-    nka, nkc] -> [B, nkc, n]."""
+    nka, nkc] -> [B, nkc, n]: over ff's own dry bins (a tp rank's partial
+    sum, which its callers complete with ``BinShard.sum_bins``)."""
     w = torch.broadcast_to(weight, masks.shape[:2])
     return torch.einsum("btkn,tkc->bcn", ff, w[..., None] * masks)
 
 
-def cw_rc(ff, feu, cloud, masks, rq, e):
+def cw_rc(ff, feu, cloud, masks, rq, e, bins=None):
     """LWC/radius/molality switches per chemistry bin of B columns.
 
     ff [B, nkt, nka, n]; feu [B, n]; cloud [B, nkc, n] bool hysteresis
     state; masks [nkt, nka, nkc], rq [nkt, nka] and e [nkt] tensors of
-    ff's dtype.  Returns (cw, cm, rc, conv2) each [B, nkc, n] plus the new
-    cloud flags.
+    ff's dtype, over ff's dry bins; ``bins`` (a ``BinShard``, the whole
+    axis by default) says which bins ff holds, and the bin sums take one
+    all_reduce over the tp ranks.  Returns (cw, cm, rc, conv2) each [B,
+    nkc, n] plus the new cloud flags.
     """
     dtype = ff.dtype
     vol = 4.0 / 3.0 * PI * rq ** 3                   # [nkt, nka] um3
-    cw_raw = bin_sums(ff, vol, masks)
-    rc_raw = bin_sums(ff, vol * rq, masks)
-    cm_raw = bin_sums(ff, e[:, None], masks)
+    bins = BinShard(ff.shape[2]) if bins is None else bins
+    cw_raw, rc_raw, cm_raw = bins.sum_bins(
+        bin_sums(ff, vol, masks), bin_sums(ff, vol * rq, masks),
+        bin_sums(ff, e[:, None], masks))
 
     rc = torch.where(cw_raw > 0.0,
                      rc_raw / torch.clamp(cw_raw, min=1e-300) * 1.0e-6, 0.0)
@@ -246,22 +250,26 @@ def per_lwc(x, cw):
                        4.0 * PI / 3.0 * x / cw, 0.0)
 
 
-def bin_fall_speeds(ff, t, p, cw, masks, rq):
-    """LWC-weighted fall velocity vt [B, nkc, n] of each chemistry bin (the
-    l == 1 branch of fast_k_mt)."""
+def fall_speed_sums(ff, t, p, masks, rq):
+    """Each chemistry bin's volume-weighted fall velocity [B, nkc, n] over
+    ff's own dry bins (the l == 1 branch of fast_k_mt): the bin's
+    LWC-weighted fall velocity vt once summed over the whole axis and
+    divided by the LWC (``per_lwc``)."""
     from ..physics.sedimentation import vterm
     rqm = rq * 1.0e-6                                    # [nkt, nka] m
     xvs = vterm(rqm[None, :, :, None], t[:, None, None, :],
                 p[:, None, None, :])
-    return per_lwc(bin_sums(ff * xvs, rqm ** 3 * 1.0e6, masks), cw)
+    return bin_sums(ff * xvs, rqm ** 3 * 1.0e6, masks)
 
 
-def fast_k_mt(ff, t, p, alpha, vmean, cw, cm, masks, rq, freep):
+def fast_k_mt(ff, t, p, alpha, vmean, cw, cm, masks, rq, freep, bins=None):
     """Schwartz mass-transfer coefficients and bin fall velocities of B
     columns.
 
     alpha/vmean: [B, nexch, n]; ff [B, nkt, nka, n]; cw/cm [B, nkc, n];
-    t, p, freep [B, n].  Returns xkmt [B, nexch, nkc, n], vt [B, nkc, n].
+    t, p, freep [B, n]; ``bins`` as ``cw_rc``'s (every bin sum of the
+    call in one all_reduce).  Returns xkmt [B, nexch, nkc, n], vt [B,
+    nkc, n].
     """
     z4pi3 = 4.0 * PI / 3.0
     rqm = rq * 1.0e-6
@@ -269,16 +277,18 @@ def fast_k_mt(ff, t, p, alpha, vmean, cw, cm, masks, rq, freep):
     weight = rqm ** 2 * 1.0e6
     ok = (cw > 0.0) & (cm > 0.0)
     inv_cw = z4pi3 / torch.clamp(cw, min=1e-300)
-    xkmt = []
+    xk1 = []
     for l in range(alpha.shape[1]):
         a_l, v_l = alpha[:, l], vmean[:, l]             # [B, n]
         x1 = torch.where(a_l > 0.0,
                          4.0 / (3.0 * torch.clamp(a_l, min=1e-300)), 0.0)
         x2 = v_l[:, None, None, :] / (r_over_l + x1[:, None, None, :])
-        xk1 = bin_sums(ff * x2, weight, masks)
-        xkmt.append(torch.where(ok, inv_cw * xk1, 0.0))
-    return (torch.stack(xkmt, dim=1),
-            bin_fall_speeds(ff, t, p, cw, masks, rq))
+        xk1.append(bin_sums(ff * x2, weight, masks))
+    bins = BinShard(ff.shape[2]) if bins is None else bins
+    xk1, vt = bins.sum_bins(torch.stack(xk1, dim=1),
+                            fall_speed_sums(ff, t, p, masks, rq))
+    return torch.where(ok[:, None], inv_cw[:, None] * xk1, 0.0), \
+        per_lwc(vt, cw)
 
 
 def equil_constants(t, conv2, xgamma):
@@ -347,27 +357,31 @@ def equil_constants(t, conv2, xgamma):
     return kef, keb
 
 
-def dry_aerosol_rates(ff, t, masks, rq, freep, bins=None):
+def dry_aerosol_rates(ff, t, masks, rq, freep, bins=None, lwc=None):
     """Het-on-dry-aerosol stack of B columns (dry_cw_rc + dry_rates_g).
 
     ff [B, nkt, nka, n]; t, freep [B, n]; masks [nkt, nka, nkc] and rq
     [nkt, nka] tensors of ff's dtype, over ff's dry bins; ``bins`` (a
     ``parallel.bins.BinShard``, the whole axis by default) says which
     bins ff holds, and the bin sums take one all_reduce over the tp
-    ranks.  Returns dict with xkmtd (species ->
-    [B, 2, n]) for HNO3/N2O5/NH3/H2SO4, henry_dry (species -> [B, n]),
-    xeq_hno3 [B, n] and the dry LWC/radius cwd, rcd [B, 2, n] of the two
-    aerosol bins.
+    ranks.  ``lwc``, where given, is (cw, rc) of ``cw_rc`` for the same
+    ff: dry_cw_rc's LWC and radius of the aerosol bins are the same sums,
+    taken from there with no sum over the bins.  Returns dict with xkmtd
+    (species -> [B, 2, n]) for HNO3/N2O5/NH3/H2SO4, henry_dry (species ->
+    [B, n]), xeq_hno3 [B, n] and the dry LWC/radius cwd, rcd [B, 2, n]
+    of the two aerosol bins.
     """
-    m = masks[:, :, :2]                          # aerosol bins only
-    vol = 4.0 / 3.0 * PI * rq ** 3
-    bins = BinShard(ff.shape[2]) if bins is None else bins
-    cwd_raw, rcd_raw = bins.sum_bins(bin_sums(ff, vol, m),
-                                     bin_sums(ff, vol * rq, m))
-    rcd = torch.where(cwd_raw > 0.0,
-                      rcd_raw / torch.clamp(cwd_raw, min=1e-300) * 1.0e-6,
-                      0.0)
-    cwd = cwd_raw * 1.0e-12
+    if lwc is not None:
+        cwd, rcd = lwc[0][:, :2], lwc[1][:, :2]
+    else:
+        m = masks[:, :, :2]                          # aerosol bins only
+        vol = 4.0 / 3.0 * PI * rq ** 3
+        bins = BinShard(ff.shape[2]) if bins is None else bins
+        cwd_raw, rcd_raw = bins.sum_bins(bin_sums(ff, vol, m),
+                                         bin_sums(ff, vol * rq, m))
+        rcd = torch.where(cwd_raw > 0.0, rcd_raw
+                          / torch.clamp(cwd_raw, min=1e-300) * 1.0e-6, 0.0)
+        cwd = cwd_raw * 1.0e-12
 
     zgamma = {"HNO3": 0.02, "N2O5": 0.02, "NH3": 0.05, "H2SO4": 0.1}
     vmean_c = {"HNO3": 6.3e-2, "N2O5": 1.08e-1, "NH3": 1.7e-2,

@@ -139,9 +139,16 @@ class MultiphaseDriver(ChemistryDriver):
             kc: [(self.tot_n2i[f"{nm}l{kc}"], mm) for nm, mm in MASS_IONS
                  if f"{nm}l{kc}" in self.tot_n2i]
             for kc in range(1, nkc + 1)}
+        # the model's dry bins' water masses and dry masses; the mass
+        # feedback's targets range over the whole axis: its dry masses and
+        # chemistry-bin masks by global bin index
         mg = model.micro
         self._e = mg.e
         self._en = mg.en
+        self._en_all = torch.as_tensor(model.grids.micro.en, dtype=self.dtype,
+                                       device=self.device)
+        self._masks_all = torch.as_tensor(self.masks, dtype=self.dtype,
+                                          device=self.device)
         self.last_gas_info = None   # the Ros3 info of the layers above nf
 
     # ------------------------------------------------------------------
@@ -187,8 +194,8 @@ class MultiphaseDriver(ChemistryDriver):
         ff = micro.ff[..., n_bl]
         cw = self._cw_rc(state)[0][:, :, n_bl]                # [B, nkc]
         rq3 = self._rq ** 3 * 1.0e-18
-        xx1 = torch.einsum("btk,btk,tkc->bc", micro.vd * rq3 * 1.0e6, ff,
-                           self._masks)
+        xx1 = self.model.bins.sum_bins(torch.einsum(
+            "btk,btk,tkc->bc", micro.vd * rq3 * 1.0e6, ff, self._masks))
         vdm = aq.per_lwc(xx1, cw)                             # [B, nkc]
         sb = np.asarray(self.tot.species_bin)
         kc_of = torch.as_tensor(np.maximum(sb, 1) - 1, device=vdm.device)
@@ -205,11 +212,13 @@ class MultiphaseDriver(ChemistryDriver):
     # ------------------------------------------------------------------
     def _cw_rc(self, state):
         return aq.cw_rc(state.micro.ff, state.met.feu, state.chem.cloud,
-                        self._masks, self._rq, self._e)
+                        self._masks, self._rq, self._e, self.model.bins)
 
     def liq_parm(self, state):
         """The aqueous support stack of B columns; returns a dict of
-        tensors [B, ..., n]."""
+        tensors [B, ..., n].  Its sums over the dry bins take two
+        all_reduce calls over the tp ranks: cw_rc's, then fast_k_mt's
+        (the dry-aerosol rates take cw_rc's LWC and radius)."""
         cfg = self.model.cfg
         gp = cfg.grid
         met = state.met
@@ -226,7 +235,7 @@ class MultiphaseDriver(ChemistryDriver):
         alpha = aq.sticking_coefficients(self.exch, t, cfg.lp_buxmann15alph)
         vmean = aq.mean_speeds(self.exch, self.masses, t)
         xkmt, vt = aq.fast_k_mt(ff, t, p, alpha, vmean, cw, cm, self._masks,
-                                self._rq, freep)
+                                self._rq, freep, self.model.bins)
         # Pitzer ion activity coefficients (SR activ, kpp.f90:5204-5404)
         # and the equilibrium rates, in the tot solve's dtype: the backward
         # rates (kb ~1e10 x conv2 ~1e10 x two activity coefficients)
@@ -237,7 +246,7 @@ class MultiphaseDriver(ChemistryDriver):
             cm.to(td), cw.to(td), self.tot_n2i, gp.nf)
         kef, keb = aq.equil_constants(t.to(td), conv2.to(td), xgamma)
         dry = aq.dry_aerosol_rates(ff, t, self._masks, self._rq, freep,
-                                   self.model.bins)
+                                   lwc=(cw, rc))
         return {"cw": cw, "cm": cm, "rc": rc, "conv2": conv2,
                 "cloud": cloud, "xkmt": xkmt, "vt": vt, "kef": kef,
                 "keb": keb, "dry": dry}
@@ -520,34 +529,44 @@ class MultiphaseDriver(ChemistryDriver):
     def konc(self, chem, ff_before, ff_after):
         """Shift aqueous species between aerosol and droplet bins in
         proportion to the particles that crossed the kw threshold;
-        ff_before/ff_after [B, nkt, nka, n] around kon."""
+        ff_before/ff_after [B, nkt, nka, n] around kon (the model's dry
+        bins).
+
+        The loop over the dry bins ia is sequential (each bin's transfer
+        is clamped against what the bins before it left), so each rank
+        runs it over the whole axis: the per-(ia, level) counts are
+        gathered from the tp ranks (one all_reduce, exact) and every rank
+        computes the same conc.  Each bin's old liquid volume is the sum
+        of its dry bins' counts."""
         if self.pairs13.size == 0 and self.pairs24.size == 0:
             return chem
         mg = self.model.micro
-        nkt, nka = ff_before.shape[1:3]
+        nkt = ff_before.shape[1]
+        nka, ka = self.model.bins.nka, mg.ka
         vol = 4.0 / 3.0 * PI * mg.rq ** 3
         jt = torch.arange(nkt, device=vol.device)[:, None]
-        aero_m = (jt < mg.kw[None, :]).to(vol.dtype)
+        aero_m = (jt < mg.kw[None, :]).to(vol.dtype)[None, :, :, None]
+        vol = vol[None, :, :, None]
 
         # per-(ia, level) particle counts and volumes, aerosol vs droplet
-        def counts(ff, with_volume):
-            pa = torch.einsum("btkn,tk->bkn", ff, aero_m)
-            pd = torch.einsum("btkn,tk->bkn", ff, 1.0 - aero_m)
-            if not with_volume:
-                return pa, pd
-            va = torch.einsum("btkn,tk->bkn", ff, vol * aero_m)
-            vd = torch.einsum("btkn,tk->bkn", ff, vol * (1.0 - aero_m))
-            return pa, pd, va, vd
-
-        pa_o, pd_o, va_o, vd_o = counts(ff_before, True)
-        pa_n, pd_n = counts(ff_after, False)
-        # vol2 per bin: total old liquid volume of the bin
-        vol2 = aq.bin_sums(ff_before, vol, self._masks)     # [B, nkc, n]
+        # [6, B, nka, n], the sums over the water bins of each dry bin
+        counts = torch.stack([
+            (ff_before * aero_m).sum(dim=1),
+            (ff_before * (1.0 - aero_m)).sum(dim=1),
+            (ff_before * (vol * aero_m)).sum(dim=1),
+            (ff_before * (vol * (1.0 - aero_m))).sum(dim=1),
+            (ff_after * aero_m).sum(dim=1),
+            (ff_after * (1.0 - aero_m)).sum(dim=1)])
+        pa_o, pd_o, va_o, vd_o, pa_n, pd_n = \
+            self.model.bins.gather_bins(counts, 2)
+        # the old liquid volume of each chemistry bin [B, n]
+        vol2 = {1: va_o[:, :ka].sum(dim=1), 2: va_o[:, ka:].sum(dim=1),
+                3: vd_o[:, :ka].sum(dim=1), 4: vd_o[:, ka:].sum(dim=1)}
 
         conc = chem.conc.clone()
         for pairs, ias, va2, vd2 in (
-                (self.pairs13, range(0, mg.ka), vol2[:, 0], vol2[:, 2]),
-                (self.pairs24, range(mg.ka, nka), vol2[:, 1], vol2[:, 3])):
+                (self.pairs13, range(0, ka), vol2[1], vol2[3]),
+                (self.pairs24, range(ka, nka), vol2[2], vol2[4])):
             if pairs.size == 0:
                 continue
             src = torch.as_tensor(pairs[:, 0], device=conc.device)
@@ -591,13 +610,17 @@ class MultiphaseDriver(ChemistryDriver):
         deta, detw = self.model.atm.deta, self.model.atm.detw
 
         cw, _, rc, _, _ = self._cw_rc(state)
-        vt = aq.bin_fall_speeds(micro.ff, met.t, met.p, cw, self._masks,
-                                self._rq)
-        # vdm: LWC-weighted particle deposition velocity per bin (partdep)
+        # the bins' fall velocities, and vdm: the LWC-weighted particle
+        # deposition velocity per bin (partdep); their sums over the dry
+        # bins in one all_reduce
         rq3 = self._rq ** 3 * 1.0e-18
-        xx1 = torch.einsum("btk,tkc->bc",
-                           micro.vd * rq3 * 1.0e6 * micro.ff[..., 1],
-                           self._masks)
+        vt, xx1 = self.model.bins.sum_bins(
+            aq.fall_speed_sums(micro.ff, met.t, met.p, self._masks,
+                               self._rq),
+            torch.einsum("btk,tkc->bc",
+                         micro.vd * rq3 * 1.0e6 * micro.ff[..., 1],
+                         self._masks))
+        vt = aq.per_lwc(vt, cw)
         vdm = aq.per_lwc(xx1, cw[..., 1])
 
         rows, ccs = [], []
@@ -649,15 +672,23 @@ class MultiphaseDriver(ChemistryDriver):
         boundaries with the displaced volume (str.f90:5975-6134).
 
         Each dry bin maps independently to its two bracketing target bins:
-        one weight matrix W [B, nka, nka, n] per chemistry bin and a
-        batched product, mass-conserving by construction.
+        one weight matrix W [B, source ia, target ia, n] per chemistry bin
+        and a batched product, mass-conserving by construction.  The
+        sources are the model's dry bins and the targets the whole axis:
+        a rank's particles can land in another rank's bins, so each rank
+        forms its sources' contribution to the whole axis and
+        ``BinShard.reduce_home`` brings every target's share home (one
+        all_reduce per chemistry bin, which must see the previous bin's
+        moves).
         """
         gp = self.model.cfg.grid
         mg = self.model.micro
+        bins = self.model.bins
         chem, micro = state.chem, state.micro
         nf, n = gp.nf, gp.n
         en, masks = self._en, self._masks
-        nka = en.shape[0]
+        en_all = self._en_all
+        nka = bins.nka
         dev, dtype = en.device, en.dtype
         lev = torch.arange(n, device=dev)
         lev_ok = (lev >= 1) & (lev < nf)
@@ -669,9 +700,11 @@ class MultiphaseDriver(ChemistryDriver):
         vc = torch.zeros((B, 4, 4, n), dtype=dtype, device=dev)  # [to, from]
         # chemistry-bin id (0..3) of each (jt, target-ia) cell
         dest_bin = torch.nn.functional.one_hot(
-            torch.argmax(masks, dim=2), 4).to(dtype)             # [t, d, 4]
+            torch.argmax(self._masks_all, dim=2), 4).to(dtype)   # [t, d, 4]
         vol_q = 4.0 / 3.0 * PI * mg.rq ** 3
         dests = torch.arange(nka, device=dev)[None, None, :, None]
+        # the global index of each of the model's dry bins
+        home = bins.lo + torch.arange(bins.width, device=dev)
 
         for kc in range(1, self.nkc + 1):
             ion_idx = self._mass_ions[kc]
@@ -679,8 +712,9 @@ class MultiphaseDriver(ChemistryDriver):
                 continue
             mkc = masks[:, :, kc - 1]                  # [nkt, nka]
             # per-level totals over this bin
-            sap = torch.einsum("tk,btkn->bn", mkc, ff)
-            smp = torch.einsum("tk,btkn->bn", mkc * en, ff)
+            sap, smp = bins.sum_bins(
+                torch.einsum("tk,btkn->bn", mkc, ff),
+                torch.einsum("tk,btkn->bn", mkc * en, ff))
             dion = torch.zeros_like(sap)
             for i, mm in ion_idx:
                 dion = dion + (conc[:, i] - conc_before[:, i]) * mm
@@ -691,20 +725,20 @@ class MultiphaseDriver(ChemistryDriver):
             active = ((sap > 1.0e-6) & (cm[:, kc - 1] > 0.0)
                       & lev_ok)[:, None, :]            # [B, 1, n]
 
-            # target dry mass for every source bin: x0 [B, nka, n]
+            # target dry mass for every source bin: x0 [B, nka, n], and
+            # the target bins on the whole axis
             x0 = en[None, :, None] + den[:, None, :] * en[None, :, None] \
                 / torch.clamp(smp[:, None, :], min=1e-30) * sap[:, None, :]
-            ix = torch.clamp(torch.searchsorted(en, x0, right=True) - 1,
+            ix = torch.clamp(torch.searchsorted(en_all, x0, right=True) - 1,
                              0, nka - 2)
-            enl = en[ix]
-            enr = en[torch.clamp(ix + 1, max=nka - 1)]
+            enl = en_all[ix]
+            enr = en_all[torch.clamp(ix + 1, max=nka - 1)]
             c0 = (enr - x0) / torch.clamp(enr - enl, min=1e-300)
             c0 = torch.clamp(c0, 0.0, 1.0)
-            c0 = torch.where(x0 < en[0], 1.0, c0)
-            c0 = torch.where(x0 >= en[-1], 0.0, c0)
+            c0 = torch.where(x0 < en_all[0], 1.0, c0)
+            c0 = torch.where(x0 >= en_all[-1], 0.0, c0)
             # no move where inactive
-            ix = torch.where(active, ix,
-                             torch.arange(nka, device=dev)[None, :, None])
+            ix = torch.where(active, ix, home[None, :, None])
             c0 = torch.where(active, c0, 1.0)
 
             # weight matrix W [B, source ia, dest ia, n]
@@ -712,9 +746,11 @@ class MultiphaseDriver(ChemistryDriver):
                 + (dests == torch.clamp(ix + 1, max=nka - 1)[:, :, None, :]
                    ).to(dtype) * (1.0 - c0[:, :, None, :])
             moved = ff * mkc[None, :, :, None]         # [B, nkt, nka, n]
-            ff = ff - moved + torch.einsum("btan,badn->btdn", moved, w)
+            ff = ff - moved + bins.reduce_home(
+                torch.einsum("btan,badn->btdn", moved, w), 2)
 
-            # volume landing in a different chemistry bin
+            # volume landing in a different chemistry bin (this rank's
+            # sources: their sum over the ranks below)
             landed = torch.einsum("btan,badn->btdn",
                                   moved * vol_q[None, :, :, None], w)
             vmoved = torch.einsum("btdn,tdc->bcn", landed, dest_bin)
@@ -723,7 +759,8 @@ class MultiphaseDriver(ChemistryDriver):
                     vc[:, b, kc - 1] = vc[:, b, kc - 1] + vmoved[:, b]
             del w, moved, landed
 
-        micro = micro.replace(ff=ff, fsum=torch.sum(ff, dim=(1, 2)))
+        vc, fsum = bins.sum_bins(vc, torch.sum(ff, dim=(1, 2)))
+        micro = micro.replace(ff=ff, fsum=fsum)
 
         # move dissolved species with the displaced volume
         conc = conc.clone()

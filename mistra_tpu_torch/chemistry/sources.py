@@ -103,12 +103,15 @@ def aer_source(model, state, dt, k_in=1, d_z=None):
 
     Vectorised over the large dry bins: each bin's equilibrium water class
     at the current surface RH receives the emitted particles; ions go to
-    chemistry bin 2 (reference kpp.f90:3810-4069).
+    chemistry bin 2 (reference kpp.f90:3810-4069).  Over the model's dry
+    bins (``model.bins``): the sums over the bins (fsum, the ions) take
+    one all_reduce over the tp ranks.
     """
     from ..physics.microphysics import ZRHO_FRAC, Z4PI3, rgl
     cfg = model.cfg
     drv = model._chemistry
     mg = model.micro
+    bins = model.bins
     met, chem, micro = state.met, state.chem, state.micro
 
     # u10: wind interpolated to 10 m (aer_source_init)
@@ -123,7 +126,6 @@ def aer_source(model, state, dt, k_in=1, d_z=None):
 
     rn, ew, rq, rw = mg.rn, mg.ew, mg.rq, mg.rw
     ka = mg.ka
-    nka = rn.shape[0]
     nkt = ew.shape[0]
     if d_z is None:
         d_z = model.atm.detw[1]
@@ -161,8 +163,8 @@ def aer_source(model, state, dt, k_in=1, d_z=None):
     width = torch.where(jt_low == 0, width_low, width_gen)
     df = df * width / d_z * 1.0e-6              # [1/cm3/s] per bin
 
-    # only the large (sea-salt) bins emit
-    ia_mask = torch.arange(nka, device=rn.device) >= ka
+    # only the large (sea-salt) bins emit: ka is a global bin index
+    ia_mask = bins.lo + torch.arange(bins.width, device=rn.device) >= ka
     df = torch.where(ia_mask, df, 0.0)
 
     # add particles at their equilibrium water class, level 1
@@ -170,16 +172,19 @@ def aer_source(model, state, dt, k_in=1, d_z=None):
               == jt_eq[:, None, :]).to(df.dtype)             # [B, nkt, nka]
     ff = micro.ff.clone()
     ff[..., k_in] = ff[..., k_in] + onehot * df[:, None, :] * dt
-    micro = micro.replace(ff=ff, fsum=torch.sum(ff, dim=(1, 2)))
 
-    # ions into chemistry bin 2
+    # ions into chemistry bin 2: each one's sum over the bins [B]
+    ions = [(drv.tot_n2i[f"{name}l2"], bins.take(arr, 0))
+            for name, arr in drv.sa1_table.items()
+            if f"{name}l2" in drv.tot_n2i]
+    load = torch.stack(
+        [torch.sum(df * dt * torch.as_tensor(w, dtype=df.dtype,
+                                             device=df.device) * 1.0e6,
+                   dim=1) for _, w in ions], dim=1) \
+        if ions else df.new_zeros((df.shape[0], 0))
+    fsum, load = bins.sum_bins(torch.sum(ff, dim=(1, 2)), load)
+    micro = micro.replace(ff=ff, fsum=fsum)
     conc = chem.conc.clone()
-    for name, arr in drv.sa1_table.items():
-        sp = f"{name}l2"
-        if sp not in drv.tot_n2i:
-            continue
-        w = torch.as_tensor(arr, dtype=df.dtype, device=df.device)
-        i = drv.tot_n2i[sp]
-        conc[:, i, k_in] = conc[:, i, k_in] + torch.sum(df * dt * w * 1.0e6,
-                                                        dim=1)
+    for c, (i, _) in enumerate(ions):
+        conc[:, i, k_in] = conc[:, i, k_in] + load[:, c]
     return state.replace(micro=micro, chem=chem.replace(conc=conc))

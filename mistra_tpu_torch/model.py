@@ -43,8 +43,8 @@ A ``Model`` holds a ``parallel.bins.BinShard``: the dry-aerosol bins of
 ff that this process steps (the whole axis by default).  With part of the
 axis (one rank of the ensemble mesh's "tp" axis) every per-bin constant
 is cut to those bins and every sum over the bins is completed by an
-all_reduce over the tp ranks; the multiphase driver, nucleation and the
-box modes are not split that way and refuse it.
+all_reduce over the tp ranks, in every configuration (``BoxModel``'s
+too).
 """
 
 from __future__ import annotations
@@ -109,23 +109,6 @@ def micro_tensors(mg: MicroGrid, dtype, device,
     return dataclasses.replace(mg, **{k: t(k) for k in arrays})
 
 
-def refuse_bin_split(cfg: MistraConfig) -> None:
-    """Raise for the configurations whose step is not split over the dry
-    bins (ROADMAP §1, "Still to port" 1)."""
-    if cfg.box or cfg.chamber:
-        what = "the box and chamber modes (BoxModel)"
-    elif cfg.nuc:
-        what = "nucleation (nuc=T)"
-    elif cfg.chem and cfg.mic and cfg.nkc_l > 0:
-        what = "the multiphase driver (mic=T, chem=T, nkc_l>0)"
-    else:
-        return
-    raise NotImplementedError(
-        f"{what} does not run with the dry-aerosol bins split over tp ranks "
-        "(ROADMAP §1, \"Still to port\" 1: tp > 1 for the multiphase "
-        "driver, nucleation and BoxModel); use tp=1")
-
-
 class Model:
     """Owns configuration, grids and tables; provides the step functions.
 
@@ -150,8 +133,6 @@ class Model:
         if self.bins.nka != cfg.grid.nka:
             raise ValueError(f"bins of an axis of {self.bins.nka}, the grid "
                              f"has nka={cfg.grid.nka}")
-        if not self.bins.is_whole:
-            refuse_bin_split(cfg)
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg)
         self.band = band

@@ -7,7 +7,12 @@ bins (``mistra_tpu.parallel.mesh._spec_for``).  The port runs one process
 per rank: a ``BinShard`` says which bins ``[lo, hi)`` of the global axis
 this rank holds and turns every sum over the nka axis into this rank's
 partial sum followed by one ``all_reduce(SUM)`` over the tp group
-(``sum_bins``).  A ``Model`` holds one; by default it is the whole axis,
+(``sum_bins``).  Where a loop over the bins is sequential (konc's), the
+rank takes the whole axis of small per-bin counts (``gather_bins``);
+where a rank's bins send particles to bins of other ranks (the mass
+feedback), each rank forms its contribution to the whole axis and
+``reduce_home`` brings every bin's share to the rank that holds it.  A
+``Model`` holds one; by default it is the whole axis,
 where ``sum_bins`` returns its arguments and the step is the single-rank
 step.
 
@@ -33,9 +38,10 @@ class BinShard:
     """Bins ``[lo, hi)`` of a dry-aerosol axis of ``nka`` bins and the tp
     process group that holds the others (None for the whole axis).
 
-    ``calls`` and ``seconds`` count the all_reduce calls of ``sum_bins``
-    and ``all_agree`` and the host time they took (each waits for its
-    result)."""
+    ``calls``, ``seconds`` and ``bytes`` count the all_reduce calls of
+    ``sum_bins``, ``gather_bins``, ``reduce_home`` and ``all_agree``, the
+    host time they took (each waits for its result) and the bytes of the
+    tensors they reduced."""
 
     def __init__(self, nka: int, lo: int = 0, hi: int | None = None,
                  group=None):
@@ -45,6 +51,7 @@ class BinShard:
         self.nka, self.lo, self.hi, self.group = nka, lo, hi, group
         self.calls = 0
         self.seconds = 0.0
+        self.bytes = 0
 
     @classmethod
     def split(cls, nka: int, tp: int, index: int, group=None) -> BinShard:
@@ -109,6 +116,29 @@ class BinShard:
             at += p.numel()
         return out[0] if len(out) == 1 else tuple(out)
 
+    def gather_bins(self, x, dim: int):
+        """The whole axis of x along dim, given this rank's slice: the
+        slice written into zeros of the whole axis, then one all_reduce
+        (SUM) over the tp group.  Exact (every other rank adds zeros), so
+        the result is bit-equal on every rank."""
+        if self.is_whole:
+            return x
+        shape = list(x.shape)
+        shape[dim] = self.nka
+        whole = x.new_zeros(shape)
+        whole.narrow(dim, self.lo, self.width).copy_(x)
+        return self._all_reduce(whole, "SUM")
+
+    def reduce_home(self, x, dim: int):
+        """This rank's slice along dim of the sum over the tp ranks of
+        x, each rank's contribution to the whole axis: one all_reduce
+        (SUM) of the whole axis, in place where x is contiguous, then
+        this rank's bins (gloo has no reduce_scatter; one code path
+        serves both backends)."""
+        if self.is_whole:
+            return x
+        return self.take(self._all_reduce(x.contiguous(), "SUM"), dim)
+
     def all_agree(self, flags):
         """flags (bool) true only where they are true on every tp rank:
         one all_reduce(MIN) over the tp group.  A loop that holds a
@@ -128,8 +158,10 @@ class BinShard:
         dist.all_reduce(flat, op=getattr(dist.ReduceOp, op), group=self.group)
         self.seconds += time.perf_counter() - t0
         self.calls += 1
+        self.bytes += flat.numel() * flat.element_size()
         return flat
 
     def reset_counts(self) -> None:
         self.calls = 0
         self.seconds = 0.0
+        self.bytes = 0

@@ -140,7 +140,13 @@ def background_spectrum(ff, member):
 class NucleationDriver:
     """Apparent-nucleation step (appnucl, nuc.f90:427-1009) of a Model
     whose chemistry driver is installed: the vapors are looked up in the
-    driver's concentration field (``conc_n2i``)."""
+    driver's concentration field (``conc_n2i``).
+
+    Over the model's dry bins (``model.bins``): the background spectrum
+    and the new fsum are sums over the bins (one all_reduce each over the
+    tp ranks), the new particles go to global dry bin 0 (on the rank
+    that holds it), and everything else, the vapor consumption included,
+    is computed from replicated quantities on every rank."""
 
     def __init__(self, model):
         self.model = model
@@ -161,7 +167,7 @@ class NucleationDriver:
             return torch.as_tensor(np.asarray(x), dtype=self.dtype,
                                    device=model.device)
 
-        self._member = t(background_membership(mg))
+        self._member = model.bins.take(t(background_membership(mg)), 2)
         self._zdp = t(np.asarray(mg.rq)[:, 0] * 2000.0)       # [nkt]
         self._rw1 = t(np.ascontiguousarray(np.asarray(mg.rw)[:, 0]))
         self._zdpmin = float(np.asarray(mg.rn)[0] * 2000.0)
@@ -229,7 +235,8 @@ class NucleationDriver:
 
         # background spectrum and condensation sink
         lam = 2.28e-5 * temp / press
-        np_1d = background_spectrum(micro.ff, self._member)   # [B, nkt, n]
+        np_1d = m.bins.sum_bins(background_spectrum(micro.ff,
+                                                    self._member))
         zdp = self._zdp[:, None]
         kn = 2.0e9 * lam[:, None, :] / zdp
         beta = (1.0 + kn) / (1.0 + 0.377 * kn
@@ -279,13 +286,17 @@ class NucleationDriver:
         active = j_app > 0.1
 
         # feedback: new particles into the smallest dry bin at class jts
+        # (global bin 0: the rank whose bins start there adds them)
         if self.ifeed != 0:
-            onehot = (torch.arange(nkt, device=dev)[None, :, None]
-                      == jts[:, None, :]).to(self.dtype)   # [B, nkt, n]
-            add = torch.where(active, j_app * dt, 0.0)
-            ff = micro.ff.clone()
-            ff[:, :, 0, :] = ff[:, :, 0, :] + onehot * add[:, None, :]
-            micro = micro.replace(ff=ff, fsum=torch.sum(ff, dim=(1, 2)))
+            ff = micro.ff
+            if m.bins.lo == 0:
+                onehot = (torch.arange(nkt, device=dev)[None, :, None]
+                          == jts[:, None, :]).to(self.dtype)  # [B, nkt, n]
+                add = torch.where(active, j_app * dt, 0.0)
+                ff = ff.clone()
+                ff[:, :, 0, :] = ff[:, :, 0, :] + onehot * add[:, None, :]
+            micro = micro.replace(ff=ff, fsum=m.bins.sum_bins(
+                torch.sum(ff, dim=(1, 2))))
 
         # vapor consumption: new dry mass [mol/m3]
         deltax = torch.where(active,

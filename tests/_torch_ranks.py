@@ -29,6 +29,52 @@ from mistra_tpu_torch.physics import growth
 # the collectives' timeout in a rank: a rank whose partner failed stops
 # after this long
 RANK_TIMEOUT_S = 60.0
+# a gathered tp > 1 run against tp = 1: whole minutes within 1e-6 of
+# each field's scale (the whole-minute tolerance of
+# _torch_parity.step_both)
+TOL = 1e-6
+# fields that are differences of order-one quantities (as
+# _torch_parity.FLOOR): their rounding floor is that of the operands
+FLOOR = {"met.dfddt": 0.1}
+# fields compared per row (species, J slot), each to its own scale
+ROWS = ("chem.sgas", "chem.conc", "chem.photol_j")
+
+
+def rel_errs(want: dict, got: dict) -> dict:
+    """{path: max |got - want| relative to the field's largest |want|
+    (per row for ROWS)}; integer fields must be equal (error 0 or
+    inf)."""
+    assert want.keys() == got.keys()
+    out = {}
+    for path, a in want.items():
+        b = got[path]
+        assert a.shape == b.shape and a.dtype == b.dtype, path
+        if not a.is_floating_point():
+            out[path] = 0.0 if torch.equal(a, b) else float("inf")
+            continue
+        a, b = a.double(), b.double()
+        if path in ROWS:
+            scale = a.abs().amax(dim=(0, 2))
+            diff = (a - b).abs().amax(dim=(0, 2))
+            out[path] = float(torch.where(
+                scale > 0, diff / scale.clamp(min=1e-300), diff).max())
+            continue
+        scale = max(float(a.abs().max()), FLOOR.get(path, 0.0))
+        diff = float((a - b).abs().max())
+        out[path] = diff / scale if scale > 0 else diff
+    return out
+
+
+def check_close(want, got, record, what, tol=TOL):
+    """Every field of got within tol of want (``rel_errs``); the largest
+    difference recorded as the test property max_rel_err_<what>."""
+    errs = rel_errs(want, got)
+    worst = max(errs, key=errs.get)
+    record(f"max_rel_err_{what}", f"{errs[worst]:.3e} ({worst})")
+    print(f"{what}: largest difference {errs[worst]:.3e} of scale "
+          f"({worst})")
+    bad = {k: v for k, v in errs.items() if v > tol}
+    assert not bad, f"{what}: {bad}"
 
 
 def spawn(fn, world: int, tmpdir, job=None, timeout: float = 120.0):
@@ -36,6 +82,12 @@ def spawn(fn, world: int, tmpdir, job=None, timeout: float = 120.0):
     gloo group; returns each rank's result, in rank order.  The job goes
     to the ranks through a file (``torch.save``).  Raises if a rank
     failed, or is still running after ``timeout`` seconds (then killed)."""
+    return join(start(fn, world, tmpdir, job, timeout))
+
+
+def start(fn, world: int, tmpdir, job=None, timeout: float = 120.0):
+    """``spawn``'s ranks started, for ``join`` to wait on: the caller can
+    work meanwhile (the deadline counts from here)."""
     tmpdir = str(tmpdir)
     job_path = os.path.join(tmpdir, "job.pt")
     torch.save(job, job_path)
@@ -45,7 +97,14 @@ def spawn(fn, world: int, tmpdir, job=None, timeout: float = 120.0):
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
+    return procs, tmpdir, time.monotonic() + timeout, timeout
+
+
+def join(started):
+    """Each rank's result of ``start``'s ranks, in rank order; raises as
+    ``spawn`` does."""
+    procs, tmpdir, deadline, timeout = started
+    world = len(procs)
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     late = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -187,7 +246,8 @@ def start_state(cfg, radiation, B, seed):
 def step_recording(model, step, state, minutes):
     """state after ``minutes`` of step(state), with subkon's Newton
     iterations per column and substep [substeps, B] and, with chemistry,
-    the Ros3 steps per cell and substep [substeps, cells]."""
+    the Ros3 steps per cell and call [calls, cells] of the gas kernel
+    ("ros3") and of the multiphase driver's tot kernel ("ros3_tot")."""
     newton, ros3 = [], []
     subkon = growth.subkon
 
@@ -197,26 +257,35 @@ def step_recording(model, step, state, minutes):
         newton.append(info["iterations"].clone())
         return out
 
-    kernel = model._chemistry.kernel if model._chemistry is not None \
-        else None
-    if kernel is not None:
-        integrate = kernel.integrate
+    # the gas kernel, and the multiphase driver's tot kernel
+    drv = model._chemistry
+    kernels = {name: getattr(drv, name) for name in ("kernel", "tot_kernel")
+               if drv is not None and hasattr(drv, name)}
+    seen = {name: [] for name in kernels}
+    saved = {name: k.integrate for name, k in kernels.items()}
 
+    def spying(name):
         def spy_integrate(*a, **kw):
-            y, info = integrate(*a, **kw)
-            ros3.append(info["nsteps"].clone())
+            y, info = saved[name](*a, **kw)
+            seen[name].append(info["nsteps"].clone())
             return y, info
-        kernel.integrate = spy_integrate
+        return spy_integrate
+    for name, k in kernels.items():
+        k.integrate = spying(name)
     growth.subkon = spy
     try:
         for _ in range(minutes):
             state = step(state)
     finally:
         growth.subkon = subkon
-        if kernel is not None:
-            kernel.integrate = integrate
-    return state, {"newton": torch.stack(newton) if newton else None,
-                   "ros3": torch.stack(ros3) if ros3 else None}
+        for name, k in kernels.items():
+            k.integrate = saved[name]
+
+    def stacked(xs):
+        return torch.stack(xs) if xs else None
+    return state, {"newton": stacked(newton),
+                   "ros3": stacked(seen.get("kernel", [])),
+                   "ros3_tot": stacked(seen.get("tot_kernel", []))}
 
 
 def rank_minutes(rank, world, job):
@@ -277,3 +346,134 @@ def rank_subkon_skewed(rank, world, job):
     return {"iterations": info["iterations"], "after": after,
             "allreduce_calls": model.bins.calls}
 
+
+
+# --------------------------------------------------------------------------
+# the chemistry paths at tp > 1 (test_torch_mesh_tp_chem.py): the same
+# runs in the parent at tp = 1 and in every rank
+
+
+def build(cfg, radiation, bins=None):
+    """(Model, stepper) on the CPU: the stepper is the ``BoxModel`` of a
+    box or chamber configuration (which owns the Model), else the
+    Model."""
+    if cfg.box or cfg.chamber:
+        box = pt.BoxModel(cfg, device="cpu", bins=bins)
+        box.model.radiation_enabled = radiation
+        return box.model, box
+    model = pt.Model(cfg, device="cpu", bins=bins)
+    model.radiation_enabled = radiation
+    return model, model
+
+
+def run_group(group, m=None, built=None):
+    """The runs of one configuration from one global start state: in a
+    rank of mesh m on its share, or (m None) at tp = 1 on the whole
+    state.  group: {"cfg", "radiation", "state" (flattened), "runs":
+    {name: extra}}, the runs among
+
+    - "feedback": the mass feedback once, extra the conc before the
+      chemistry [B, nvar, n]; also how much of each call's contribution
+      went to bins outside this rank's ("sent");
+    - "konc": konc once, extra ff after kon (the whole axis; this rank's
+      bins are taken);
+    - "nucleation": one 10-s nucleation step; also the largest change of
+      this rank's ff;
+    - "minute": extra minutes of the ensemble step with the Newton and
+      Ros3 counts.
+
+    Each run returns its end state (flattened: this rank's share "local"
+    and, gathered, the global "state"), its all_reduce calls and
+    bytes.  ``built``: the (Model, stepper, start state) to run at tp =
+    1, the model's init made (``start_group``)."""
+    if built is None:
+        cfg = group["cfg"]
+        bins = m.bins(cfg.grid.nka) if m is not None else None
+        model, stepper = build(cfg, group["radiation"], bins)
+        flat = group["state"]
+        start = stepper.init_state(1).map_paths(lambda p, _x: flat[p])
+    else:
+        model, stepper, start = built
+    local = start if m is None else mesh.shard_state(start, m)
+    drv, b = model._chemistry, model.bins
+
+    def done(state, **extra):
+        return {"local": flatten_state(state),
+                "state": flatten_state(state) if m is None
+                else flatten_state(mesh.gather_state(state, m)),
+                "allreduce_calls": b.calls, "allreduce_bytes": b.bytes,
+                **extra}
+
+    out = {}
+    for name, extra in group["runs"].items():
+        b.reset_counts()
+        if name == "feedback":
+            sent, home = [], b.reduce_home
+            others = torch.ones(b.nka, dtype=torch.bool)
+            others[b.lo:b.hi] = False
+            others = torch.nonzero(others)[:, 0]
+
+            def spy(x, dim):
+                sent.append(float(x.index_select(dim, others).sum()))
+                return home(x, dim)
+            b.reduce_home = spy
+            try:
+                state = drv.aerosol_mass_feedback(local, extra)
+            finally:
+                b.reduce_home = home
+            out[name] = done(state, sent=sent)
+        elif name == "konc":
+            chem = drv.konc(local.chem, local.micro.ff, b.take(extra, 2))
+            out[name] = done(local.replace(chem=chem))
+        elif name == "nucleation":
+            state, _ = model._nucleation(local, 10.0)
+            out[name] = done(state, ff_change=float(
+                (state.micro.ff - local.micro.ff).abs().max()))
+        elif name == "minute":
+            step = stepper.minute_step if m is None \
+                else mesh.make_ensemble_step(stepper, m)
+            state, counts = step_recording(model, step, local, extra)
+            out[name] = done(state, nonconv=state.chem.nonconv, **counts)
+        else:
+            raise ValueError(f"no run {name!r}")
+    return out
+
+
+def start_group(cfg, radiation, B, seed, vapors=None, time_s=None):
+    """(Model, stepper, global start state) at tp = 1 on the CPU: the
+    port's initial state of B columns (boxes), fogged, the first at
+    noon; vapors {name: mol/m3}, where given, set in the concentrations
+    at 0.1-10 x their value (a seeded draw per level); time_s, where
+    given, the clock's seconds."""
+    model, stepper = build(cfg, radiation)
+    state = noon_and_midnight(model, fog(stepper.init_state(B),
+                                         cfg.grid.nf, seed))
+    if vapors:
+        drv = model._chemistry
+        rng = np.random.default_rng(seed)
+        conc = getattr(state.chem, drv.conc_name).clone()
+        for name, val in vapors.items():
+            conc[:, drv.conc_n2i[name]] = val * torch.from_numpy(
+                10.0 ** rng.uniform(-1.0, 1.0, conc.shape[::2])).to(conc)
+        state = state.replace(chem=state.chem.replace(
+            **{drv.conc_name: conc}))
+    if time_s is not None:
+        state = state.replace(tim=state.tim.replace(
+            time=torch.full_like(state.tim.time, time_s)))
+    return model, stepper, state
+
+
+def rank_groups(rank, world, job):
+    """``run_group`` of each of job["groups"] in this rank of a (world /
+    tp, tp) mesh, tp = job["tp"]; rank 0 keeps the gathered states."""
+    m = mesh.make_mesh(tp=job["tp"], devices=["cpu"] * world)
+    groups = {}
+    for key, group in job["groups"].items():
+        runs = run_group(group, m)
+        if rank != 0:
+            for run in runs.values():
+                run["state"] = None
+        groups[key] = runs
+    nka = next(iter(job["groups"].values()))["cfg"].grid.nka
+    return {"rank": rank, "dp_index": m.dp_index, "tp_index": m.tp_index,
+            "bins": (m.bins(nka).lo, m.bins(nka).hi), "groups": groups}

@@ -1,9 +1,10 @@
 """``parallel.mesh``: an ensemble of four columns split over two devices
 (here ``["cpu", "cpu"]``, one ``Model`` replica each) equals the batched
 run of one model bit for bit over two minutes; tp > 1 in one process
-raises, and a Model refuses the bins of a tp rank where its path is not
-split over them (the rest of the tp > 1 tests:
-``test_torch_mesh_tp.py``); a single process needs no distributed
+raises, and a Model that holds the bins of a tp rank without its process
+group raises at its first sum over the bins (the rest of the tp > 1
+tests: ``test_torch_mesh_tp.py`` and ``test_torch_mesh_tp_chem.py``); a
+single process needs no distributed
 set-up, and two spawned processes join one gloo group, while a request
 that names no backend raises."""
 
@@ -61,10 +62,14 @@ def test_split_and_join_columns(tmp_path):
 def test_tp_above_one_raises(tmp_path):
     with pytest.raises(ValueError, match="init_distributed"):
         mesh.make_mesh(devices=["cpu", "cpu"], tp=2)
+    # a tp rank's bins are taken on every path (the multiphase driver's
+    # too); without the process group the first sum over the bins raises
     _, tcfg = configs(tmp_path, radiation=False)
     tcfg = dataclasses.replace(tcfg, chem=True, nkc_l=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.Model(tcfg, device="cpu", bins=BinShard.split(16, 2, 1))
+    model = pt.Model(tcfg, device="cpu", bins=BinShard.split(16, 2, 1))
+    assert (model.bins.lo, model.bins.hi, model.bins.group) == (8, 16, None)
+    with pytest.raises(RuntimeError, match="no tp group"):
+        model.bins.sum_bins(torch.ones(2))
     with pytest.raises(ValueError, match="must divide nka"):
         BinShard.split(16, 3, 0)
 

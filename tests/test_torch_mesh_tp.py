@@ -25,15 +25,15 @@ in float64, two columns (one at noon, both fogged):
   0.01 K apart (where a rank-local stop leaves one rank waiting in an
   all_reduce the other never makes): the ranks agree on every stop and
   make the same all_reduce calls;
-- the refusals: tp that does not divide nka, tp > 1 with the multiphase
-  driver, with nucleation, with ``BoxModel``, and in one process.
+- the refusals: tp that does not divide nka, and tp > 1 in one process.
+The multiphase driver, nucleation and ``BoxModel`` at tp=2 are in
+``test_torch_mesh_tp_chem.py``.
 The largest difference of each comparison is recorded as a test property
 (``max_rel_err``) and printed.
 """
 
 from __future__ import annotations
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -42,54 +42,11 @@ import pytest
 import torch
 
 import _torch_ranks as R
-import mistra_tpu_torch as pt
 from _torch_parity import configs, foggy, make_models, to_port_columns
 from mistra_tpu_torch.io.checkpoint import flatten_state
 from mistra_tpu_torch.parallel import mesh
 from mistra_tpu_torch.parallel.bins import BinShard
 from mistra_tpu_torch.state import BIN_FIELDS
-
-TOL = 1e-6
-# fields that are differences of order-one quantities (as
-# _torch_parity.FLOOR): their rounding floor is that of the operands
-FLOOR = {"met.dfddt": 0.1}
-# fields compared per row (species, J slot), each to its own scale
-ROWS = ("chem.sgas", "chem.photol_j")
-
-
-def rel_errs(want: dict, got: dict) -> dict:
-    """{path: max |got - want| relative to the field's largest |want|
-    (per row for ROWS)}; integer fields must be equal (error 0 or inf)."""
-    assert want.keys() == got.keys()
-    out = {}
-    for path, a in want.items():
-        b = got[path]
-        assert a.shape == b.shape and a.dtype == b.dtype, path
-        if not a.is_floating_point():
-            out[path] = 0.0 if torch.equal(a, b) else float("inf")
-            continue
-        a, b = a.double(), b.double()
-        if path in ROWS:
-            scale = a.abs().amax(dim=(0, 2))
-            diff = (a - b).abs().amax(dim=(0, 2))
-            err = torch.where(scale > 0, diff / scale.clamp(min=1e-300),
-                              diff)
-            out[path] = float(err.max())
-            continue
-        scale = max(float(a.abs().max()), FLOOR.get(path, 0.0))
-        diff = float((a - b).abs().max())
-        out[path] = diff / scale if scale > 0 else diff
-    return out
-
-
-def check_close(want, got, record, what):
-    errs = rel_errs(want, got)
-    worst = max(errs, key=errs.get)
-    record(f"max_rel_err_{what}", f"{errs[worst]:.3e} ({worst})")
-    print(f"{what}: largest difference {errs[worst]:.3e} of scale "
-          f"({worst})")
-    bad = {k: v for k, v in errs.items() if v > TOL}
-    assert not bad, f"{what}: {bad}"
 
 
 def check_replicated(ranks, tp):
@@ -199,8 +156,8 @@ def test_host_mesh_of_two_hosts(tmp_path):
 
 def test_btz96_tp2_matches_tp1(btz96, record_property):
     ref, counts, ranks = btz96
-    check_close(flatten_state(ref), ranks[0]["gathered"], record_property,
-                "btz96_tp2_vs_tp1")
+    R.check_close(flatten_state(ref), ranks[0]["gathered"], record_property,
+                  "btz96_tp2_vs_tp1")
     for r in ranks:
         assert torch.equal(r["newton"], counts["newton"]), r["rank"]
         assert r["allreduce_calls"] == ranks[0]["allreduce_calls"] > 0
@@ -215,8 +172,8 @@ def test_btz96_tp2_replicated_fields_bit_equal(btz96):
 
 def test_chem_t_tp2_matches_tp1(chem_t, record_property):
     ref, counts, ranks = chem_t
-    check_close(flatten_state(ref), ranks[0]["gathered"], record_property,
-                "chem_t_tp2_vs_tp1")
+    R.check_close(flatten_state(ref), ranks[0]["gathered"], record_property,
+                  "chem_t_tp2_vs_tp1")
     assert ref.chem.photol_j[0].amax() > 0.0 == ref.chem.photol_j[1].amax()
     for r in ranks:
         assert torch.equal(r["ros3"], counts["ros3"]), r["rank"]
@@ -235,8 +192,8 @@ def test_world_2x2_matches_tp1(world_2x2, record_property):
     ref, counts, ranks, _ = world_2x2
     assert [(r["dp_index"], r["tp_index"]) for r in ranks] == \
         [(0, 0), (0, 1), (1, 0), (1, 1)]
-    check_close(flatten_state(ref), ranks[0]["gathered"], record_property,
-                "world_2x2_vs_tp1")
+    R.check_close(flatten_state(ref), ranks[0]["gathered"], record_property,
+                  "world_2x2_vs_tp1")
     for r in ranks:
         col = r["dp_index"]
         assert torch.equal(r["newton"], counts["newton"][:, col:col + 1])
@@ -246,8 +203,8 @@ def test_world_2x2_matches_tp1(world_2x2, record_property):
 
 def test_world_2x2_matches_jax_sharded_step(world_2x2, record_property):
     _, _, ranks, want = world_2x2
-    check_close(want, ranks[0]["gathered"], record_property,
-                "world_2x2_vs_jax_sharded")
+    R.check_close(want, ranks[0]["gathered"], record_property,
+                  "world_2x2_vs_jax_sharded")
 
 
 def test_newton_stop_agreed_across_ranks(tmp_path):
@@ -294,20 +251,3 @@ def test_tp_must_divide_nka(tmp_path):
     _, state = R.start_state(cfg, False, 2, 0)
     with pytest.raises(ValueError, match="must divide nka"):
         mesh.shard_state(state, mesh.Mesh(dp=1, tp=5))
-
-
-@pytest.mark.parametrize("settings,what", [
-    (dict(chem=True, nkc_l=4), "multiphase driver"),
-    (dict(chem=True, nkc_l=0, nuc=True), "nucleation"),
-    (dict(chem=True, nkc_l=0, box=True), "BoxModel"),
-    (dict(chem=True, nkc_l=0, chamber=True, mic=False), "BoxModel")])
-def test_tp_above_one_refused_off_the_split_paths(tmp_path, settings, what):
-    _, cfg = configs(tmp_path, radiation=False)
-    cfg = dataclasses.replace(cfg, **settings)
-    bins = BinShard.split(16, 2, 0)
-    with pytest.raises(NotImplementedError,
-                       match=f"{what}.*ROADMAP §1, \"Still to port\" 1"):
-        if cfg.box or cfg.chamber:
-            pt.BoxModel(cfg, device="cpu", bins=bins)
-        else:
-            pt.Model(cfg, device="cpu", bins=bins)

@@ -161,10 +161,11 @@ def test_driver_matches_jax(models, columns, napari, lovejoy, ifeed):
     assert added == (ifeed != 0)
 
 
-def test_two_nucleation_minutes_match_jax(models):
+def test_two_nucleation_minutes_match_jax(models, columns):
     """nuc=T with both mechanisms (appnucl2) and ifeed=1 in the column
     minute, after the chemistry: every field of a noon and a midnight
-    column over two minutes; the nucleation added particles."""
+    column over two minutes; the nucleation added particles.  The port's
+    drivers are those its init installs (the ``columns`` fixture)."""
     jm, tm, js = models
     for d in (jm._nucleation, tm._nucleation):
         d.napari, d.lovejoy, d.ifeed = True, True, 1

@@ -30,6 +30,7 @@ from .model import Model, solar_zenith
 from .physics import microphysics
 from .physics.sedimentation import partdep
 from .physics.thermo import p21
+from .utils.profiling import count, span
 
 # gas deposition-velocity overrides for box runs (sedc_box,
 # str.f90:6961-6990): name -> fixed value [m/s] or the species whose vg
@@ -244,9 +245,11 @@ class BoxModel:
         B, nph, n = pj0.shape
         t = state.tim.time
         lights = (t >= LIGHTS_ON_S) & (t < LIGHTS_OFF_S)
+        count("sync.chamber_lights")
         if not bool(lights.any()):
             return torch.zeros_like(pj0)
-        pj_model = self.model._photolysis(state)[:, :, N_BL]    # [B, nph]
+        with span("photolysis"):
+            pj_model = self.model._photolysis(state)[:, :, N_BL]  # [B, nph]
         jratio = jmeas.get(1, 0.0) / torch.clamp(pj_model[:, 0], min=1e-30)
         pj = pj_model * jratio[:, None]
         meas = np.zeros(nph)
@@ -273,7 +276,8 @@ class BoxModel:
             state = drv.sea_salt_source(state, dd, k_in=N_BL, d_z=self.z_box)
         state = self._sedc_box(state, dd)
         state = self._box_partdep(state, dd)
-        chem = drv.integrate_box(state, dd, N_BL)
+        with span("chem_solve"):
+            chem = drv.integrate_box(state, dd, N_BL)
         return state.replace(chem=chem,
                              tim=state.tim.replace(time=state.tim.time + dd))
 
@@ -281,6 +285,10 @@ class BoxModel:
         """One outer minute: clock, 6 chemistry substeps, photolysis (the
         chamber's measured J; else the model's J-rates on even minutes when
         the sun is up, averaged over the boundary layer for bl_box)."""
+        with span("minute"):
+            return self._minute_step(state)
+
+    def _minute_step(self, state):
         m = self.model
         cfg = self.cfg
         tim = state.tim
@@ -292,7 +300,8 @@ class BoxModel:
         state = state.replace(tim=tim.replace(lmin=lmin, lst=lst, lday=lday))
 
         for _ in range(6):
-            state = self.substep(state, 10.0)
+            with span("substep"):
+                state = self.substep(state, 10.0)
 
         u0 = solar_zenith(state.tim.lst, state.tim.lmin, m.astro.alat,
                           m.astro.declin, m.dtype)

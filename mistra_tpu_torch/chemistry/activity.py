@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 T1 = 298.15
 T0 = 273.15
 ALPHA = 2.0
@@ -185,7 +187,9 @@ def _efunc(aphi, xi):
 
 def _charges(z, like):
     """The charges z as a tensor [len(z), 1, ...] broadcasting against a
-    species-first tensor of like's trailing shape."""
+    species-first tensor of like's trailing shape (a copy to the
+    device)."""
+    count("sync.pitzer")
     return torch.as_tensor(z, dtype=like.dtype, device=like.device).reshape(
         (len(z),) + (1,) * like.dim())
 

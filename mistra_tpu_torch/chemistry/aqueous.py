@@ -31,6 +31,7 @@ import torch
 
 from ..constants import CAL15, GAS_CONST, PI
 from ..parallel.bins import BinShard
+from ..utils.profiling import count
 from .driver import henry_molar
 
 # thresholds (cw_rc)
@@ -165,6 +166,7 @@ def cw_rc(ff, feu, cloud, masks, rq, e, bins=None):
     cw = cw_raw * 1.0e-12                            # m3(aq)/m3(air)
 
     def col(vals):
+        count("sync.cw_rc")             # a copy to the device
         return torch.tensor(vals, dtype=dtype, device=ff.device)[:, None]
 
     thresh = col([CWM, CWM, CWMD, CWMD])

@@ -27,6 +27,7 @@ import torch
 
 from ..constants import AVOGADRO, GAS_CONST, M_AIR, PI
 from ..state import GasChemState
+from ..utils.profiling import span
 from .gas_kernel import GasKernel, load_species_csv
 from .mech import load_gas_mechanism
 from .rates import RateEnv
@@ -478,7 +479,8 @@ class ChemistryDriver:
         env, fix = self._gas_env(state, lev, y0=y0)
 
         k = self.kernel.rate_constants(env, fix=fix)
-        y, info = self.kernel.integrate(y0, k, fix, dt)
+        with span("ros3_gas"):
+            y, info = self.kernel.integrate(y0, k, fix, dt)
         y = torch.clamp(y, min=0.0)
         sgas = torch.cat([sgas[:, :, :1],
                           y.reshape(B, n - 2, nvar).transpose(1, 2),

@@ -38,6 +38,7 @@ import torch
 
 from ..constants import PI
 from ..state import MultiphaseChemState
+from ..utils.profiling import count, span
 from . import aqueous as aq
 from .activity import xgamma_field
 from .driver import ChemistryDriver, henry_molar
@@ -447,8 +448,9 @@ class MultiphaseDriver(ChemistryDriver):
         y0 = conc[..., lev].transpose(1, 2).reshape(-1, nvar) \
             .to(self.tot_dtype)
         k, fix = self._tot_env(state, lp, lev, y0)
-        y, info = self.tot_kernel.integrate(
-            y0, k.to(self.tot_dtype), fix.to(self.tot_dtype), dt)
+        with span("ros3_tot"):
+            y, info = self.tot_kernel.integrate(
+                y0, k.to(self.tot_dtype), fix.to(self.tot_dtype), dt)
         self.last_info = info
         y = torch.clamp(y, min=0.0).to(conc.dtype)
         conc = conc.clone()
@@ -474,12 +476,14 @@ class MultiphaseDriver(ChemistryDriver):
             xiod=1.0 if (cfg.halo and cfg.iod) else 0.0)
         fix = torch.stack([0.21 * air, 0.79 * air, xm1 * rho / 1.8e-2],
                           dim=-1)
+        count("sync.gas_above")         # the index list copied to the device
         fix = fix[:, [["O2", "N2", "H2O"].index(s) for s in self.mech.fixed]]
         k = self.kernel.rate_constants(env, fix=fix)
         gidx = self._gas_idx
         ng, nlev = gidx.shape[0], lev.shape[0]
         y0 = conc[:, gidx][..., lev].transpose(1, 2).reshape(-1, ng)
-        y, self.last_gas_info = self.kernel.integrate(y0, k, fix, dt)
+        with span("ros3_gas"):
+            y, self.last_gas_info = self.kernel.integrate(y0, k, fix, dt)
         y = torch.clamp(y, min=0.0).reshape(B, nlev, ng).transpose(1, 2)
         conc = conc.clone()
         conc[:, gidx[:, None], lev[None, :]] = y
@@ -494,7 +498,8 @@ class MultiphaseDriver(ChemistryDriver):
         chem = state.chem
         dev = chem.conc.device
         conc = torch.clamp(chem.conc, min=0.0)
-        lp = self.liq_parm(state)
+        with span("liq_parm"):
+            lp = self.liq_parm(state)
         conc, nfail = self._integrate_tot(
             state, conc, lp, torch.arange(1, gp.nf, device=dev), dt)
         conc = self._integrate_gas_above(
@@ -508,7 +513,8 @@ class MultiphaseDriver(ChemistryDriver):
         kpp.f90:4440-4470)."""
         chem = state.chem
         conc = torch.clamp(chem.conc, min=0.0)
-        lp = self.liq_parm(state)
+        with span("liq_parm"):
+            lp = self.liq_parm(state)
         conc, nfail = self._integrate_tot(
             state, conc, lp, torch.tensor([n_bl], device=conc.device), dt)
         return chem.replace(conc=conc, cloud=lp["cloud"],
@@ -569,6 +575,7 @@ class MultiphaseDriver(ChemistryDriver):
                 (self.pairs24, range(ka, nka), vol2[2], vol2[4])):
             if pairs.size == 0:
                 continue
+            count("sync.konc", 2)       # the pairs copied to the device
             src = torch.as_tensor(pairs[:, 0], device=conc.device)
             dst = torch.as_tensor(pairs[:, 1], device=conc.device)
             A, D = conc[:, src], conc[:, dst]         # [B, np, n]
@@ -637,6 +644,7 @@ class MultiphaseDriver(ChemistryDriver):
             ccs.append(cc[:, None, :nf].expand(-1, idx.size, -1))
         if not rows:
             return chem
+        count("sync.sedl")              # the rows copied to the device
         idx = torch.as_tensor(np.concatenate(rows), device=met.t.device)
         cc = torch.cat(ccs, dim=1)                  # [B, rows, nf]
         # time splitting bound from the bottom Courant number
@@ -770,6 +778,7 @@ class MultiphaseDriver(ChemistryDriver):
             for kkc in range(1, self.nkc + 1):
                 if kkc == kc or self._pairs[kc, kkc].size == 0:
                     continue
+                count("sync.feedback")  # the pairs copied to the device
                 prs = torch.as_tensor(self._pairs[kc, kkc], device=dev)
                 vol_ch = vc[:, kkc - 1, kc - 1] * 1.0e-12
                 cw_kc = cw[:, kc - 1]

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
+from ..utils.profiling import count, span
 from .mech import MAX_REACTANTS, Mechanism
 from .rates import RateEnv, make_namespace
 from . import rosenbrock
@@ -81,29 +82,33 @@ class GasKernel:
         broadcasts.  fix: [..., nfix] fixed-species concentrations
         (FIX(indf_*) refs).
         """
-        ns = make_namespace(env)
-        ns.setdefault("fdhetg", lambda na, nb: 0.0)
-        ns.setdefault("yxkmt", lambda ind, a: 0.0)
-        ns.setdefault("ycw", lambda a: 0.0)
-        # no aerosol environment bound: het-on-dry-aerosol switched off
-        ns.setdefault("xhet1", 0.0)
-        ns.setdefault("xhet2", 0.0)
-        if fix is not None:
-            ns["fix"] = lambda i: fix[..., i]
-            for fi, name in enumerate(self.mech.fixed):
-                ns[f"indf_{name.lower()}"] = fi
-        ks = []
-        zero = env.te * 0.0
-        for rx in self.mech.reactions:
-            try:
-                k = eval(rx.rate_expr, {"__builtins__": {}}, ns)
-            except Exception as exc:
-                raise RuntimeError(
-                    f"rate expression for {rx.label} failed: "
-                    f"{rx.rate_expr!r}: {exc}") from exc
-            ks.append(torch.as_tensor(k, dtype=self.dtype,
-                                      device=zero.device) + zero)
-        return torch.stack(ks, dim=-1)
+        with span("rate_constants"):
+            ns = make_namespace(env)
+            ns.setdefault("fdhetg", lambda na, nb: 0.0)
+            ns.setdefault("yxkmt", lambda ind, a: 0.0)
+            ns.setdefault("ycw", lambda a: 0.0)
+            # no aerosol environment bound: het-on-dry-aerosol switched off
+            ns.setdefault("xhet1", 0.0)
+            ns.setdefault("xhet2", 0.0)
+            if fix is not None:
+                ns["fix"] = lambda i: fix[..., i]
+                for fi, name in enumerate(self.mech.fixed):
+                    ns[f"indf_{name.lower()}"] = fi
+            ks = []
+            zero = env.te * 0.0
+            for rx in self.mech.reactions:
+                try:
+                    k = eval(rx.rate_expr, {"__builtins__": {}}, ns)
+                except Exception as exc:
+                    raise RuntimeError(
+                        f"rate expression for {rx.label} failed: "
+                        f"{rx.rate_expr!r}: {exc}") from exc
+                if not torch.is_tensor(k):
+                    # a constant rate: copied to the device, a host sync
+                    count("sync.rate_constants")
+                ks.append(torch.as_tensor(k, dtype=self.dtype,
+                                          device=zero.device) + zero)
+            return torch.stack(ks, dim=-1)
 
     # ------------------------------------------------------------------
     def _cx(self, y, fix):

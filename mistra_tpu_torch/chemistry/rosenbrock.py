@@ -23,6 +23,8 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..utils.profiling import count
+
 # Ros3 coefficients (L-stable, 3 stages; gas.f:1474-1513)
 ROS_A21 = 1.0
 ROS_A31 = 1.0
@@ -168,7 +170,10 @@ def integrate(fun, linop, y0, tend, opts: RosOptions = RosOptions()):
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     failed = torch.zeros((B,), dtype=torch.bool, device=dev)
 
-    while not bool(done.all()):
+    while True:
+        count("sync.ros3")
+        if bool(done.all()):
+            break
         h_eff = torch.clamp(torch.minimum(h, tend - t), min=10.0 * roundoff)
 
         fcn0 = fun(y)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 # sion1-index -> mechanism ion base name (reference ion numbering,
 # kpp.f90:3676-3711; Na+ (20) is charge-balance bookkeeping only and has
 # no reactions in the mechanism, so it is deliberately not loaded)
@@ -177,6 +179,7 @@ def aer_source(model, state, dt, k_in=1, d_z=None):
     ions = [(drv.tot_n2i[f"{name}l2"], bins.take(arr, 0))
             for name, arr in drv.sa1_table.items()
             if f"{name}l2" in drv.tot_n2i]
+    count("sync.sea_salt", len(ions))   # each weight copied to the device
     load = torch.stack(
         [torch.sum(df * dt * torch.as_tensor(w, dtype=df.dtype,
                                              device=df.device) * 1.0e6,

@@ -45,8 +45,8 @@ from .io.output import OutputWriter
 from .io.profiles import host
 from .model import Model
 from .physics import bott_cuda
-from .utils import resolve_device
-from .utils.profiling import trace
+from .utils import profiling, resolve_device
+from .utils.profiling import span, trace
 
 
 def device_for(platform: str):
@@ -63,6 +63,33 @@ def override_grid(cfg, spec: str) -> None:
     cfg.grid = GridParams(**{k: int(v) for k, v in kv.items()})
     if zinv is not None:
         cfg.zinv = float(zinv)
+
+
+@contextlib.contextmanager
+def profiled(logdir: str):
+    """torch.profiler's Chrome trace of the block into logdir, and beside
+    it the records of the program's spans that closed in the block
+    (``spans_<pid>.json``, ``profiling.collect``'s dicts)."""
+    with profiling.tracing(records=True):
+        with trace(logdir):
+            yield
+        records = profiling.collect()
+    with open(os.path.join(logdir, f"spans_{os.getpid()}.json"), "w") as f:
+        json.dump(records, f)
+
+
+def span_report(summary: dict, minutes: int) -> dict:
+    """{span name: {calls, ms_per_minute, syncs_per_minute}} over the
+    run's minutes: each span's own time and its own host syncs (the
+    ``sync.*`` counters counted in it and not in a child)."""
+    per = 1.0 / max(minutes, 1)
+    return {name: {"calls": agg["calls"],
+                   "ms_per_minute": 1e3 * agg["seconds"] * per,
+                   "syncs_per_minute": per * sum(
+                       n for k, n in agg["counts"].items()
+                       if k.startswith("sync."))}
+            for name, agg in sorted(summary.items(), key=lambda kv:
+                                    -kv[1]["seconds"]) if name is not None}
 
 
 def main(argv=None):
@@ -84,8 +111,13 @@ def main(argv=None):
                     help="integrate this many minutes instead of full hours")
     ap.add_argument("--profile", default="",
                     help="capture a torch.profiler trace of minutes 2-4 "
-                         "into this directory (Chrome trace format)")
+                         "into this directory (Chrome trace format), with "
+                         "the program's spans; report each span's ms and "
+                         "host syncs per minute")
     args = ap.parse_args(argv)
+    # the program's tracer: on around the snapshots and checkpoints, whose
+    # times the report gives, and with --profile over the run's minutes
+    profiling.reset()
 
     device = device_for(args.platform)
 
@@ -133,22 +165,15 @@ def main(argv=None):
     # the run's one column: the writer's, which every other output takes too
     col = writer.column
 
-    def timed_call(fn, *a):
-        sync()
-        t0 = wallclock.perf_counter()
-        fn(*a)
-        sync()
-        return wallclock.perf_counter() - t0
-
-    # host seconds of the snapshots, [s, count]: the initial record (with
-    # the 2-D spectrum ff where mic, and the first calls' set-up), and the
-    # loop's, by whether they wrote ff (every 30 minutes, with mic)
-    snaps = {"initial": [0.0, 0], "ff": [0.0, 0], "no_ff": [0.0, 0]}
+    # the snapshots' spans: the initial record (with the 2-D spectrum ff
+    # where mic, and the first calls' set-up), and the loop's, by whether
+    # they wrote ff (every 30 minutes, with mic)
+    snap_kinds = ("initial", "ff", "no_ff")
 
     def snapshot(particles, key=None):
         key = key or ("ff" if particles else "no_ff")
-        snaps[key][0] += timed_call(writer.snapshot, state, particles)
-        snaps[key][1] += 1
+        with profiling.tracing(), span(f"snapshot.{key}"):
+            writer.snapshot(state, particles)
     snapshot(cfg.mic, "initial")
 
     step = step_owner.minute_step
@@ -188,18 +213,18 @@ def main(argv=None):
         # the --profile trace of minutes 2-4, closed with the run if it ends
         # earlier
         tracing = stack.enter_context(contextlib.ExitStack())
-        ckpt_s = 0.0
-        n_ckpt = 0
         # the hand-written kernels' launches in the run's minutes (on the card;
         # the plain versions that run on the CPU count nothing)
         bott_cuda.reset_counts()
         lu_cuda.reset_counts()
+        if args.profile:
+            stack.enter_context(profiling.tracing())
         sync()
         t_start = wallclock.time()
 
         for it in range(1, itmax + 1):
             if args.profile and it == 2:
-                tracing.enter_context(trace(args.profile))
+                tracing.enter_context(profiled(args.profile))
             state = step(state)
             if args.profile and it == 4:
                 tracing.close()
@@ -266,9 +291,10 @@ def main(argv=None):
                                           ("Cl", "Br", "I", "S", "N")) + "\n")
                 mass_out.flush()
             if lst % 12 == 0 and lmin == 0 and not cfg.box:
-                ckpt_s += timed_call(save_checkpoint, os.path.join(
-                    args.outdir, f"restart_day{lday}_{lst:02d}h.pt"), state)
-                n_ckpt += 1
+                with profiling.tracing(), span("checkpoint"):
+                    save_checkpoint(os.path.join(
+                        args.outdir, f"restart_day{lday}_{lst:02d}h.pt"),
+                        state)
             if it % 60 == 0:
                 el = wallclock.time() - t_start
                 print(f"  {it}/{itmax} min done ({el:.0f}s wall, "
@@ -279,22 +305,27 @@ def main(argv=None):
                     "bott_advect": bott_cuda.bott_advect.launches,
                     "batched_inv": lu_cuda.batched_inv.launches}
 
-        ckpt_s += timed_call(save_checkpoint,
-                             os.path.join(args.outdir, "restart.pt"), state)
-        n_ckpt += 1
+        with profiling.tracing(), span("checkpoint"):
+            save_checkpoint(os.path.join(args.outdir, "restart.pt"), state)
         # final aerosol spectrum (ae*.out equivalent; str.f90:540-553)
         if cfg.mic:
             aer = host(state.micro.ff, col).sum(axis=0)  # [nka, n]
             np.save(os.path.join(args.outdir, "aerosol_final.npy"), aer.T)
     el = wallclock.time() - t_start
+    spans = profiling.summary()
+    none = {"calls": 0, "seconds": 0.0}
+    snaps = {k: spans.get(f"snapshot.{k}", none) for k in snap_kinds}
+    ckpt = spans.get("checkpoint", none)
     report = {"minutes": itmax, "seconds": el,
               "s_per_minute": el / max(itmax, 1),
-              **{f"snapshots_{k}": n for k, (_, n) in snaps.items()},
-              **{f"snapshot_{k}_ms": 1e3 * s / max(n, 1)
-                 for k, (s, n) in snaps.items()},
-              "checkpoints": n_ckpt,
-              "checkpoint_ms": 1e3 * ckpt_s / max(n_ckpt, 1),
+              **{f"snapshots_{k}": a["calls"] for k, a in snaps.items()},
+              **{f"snapshot_{k}_ms": 1e3 * a["seconds"] / max(a["calls"], 1)
+                 for k, a in snaps.items()},
+              "checkpoints": ckpt["calls"],
+              "checkpoint_ms": 1e3 * ckpt["seconds"] / max(ckpt["calls"], 1),
               "kernel_launches": launches}
+    if args.profile:
+        report["spans"] = span_report(spans, itmax)
     print(f"run report: {json.dumps(report)}")
     print("run complete")
     return 0

@@ -64,6 +64,7 @@ from .physics import diffusion, growth, microphysics, sedimentation, surface
 from .physics.turbulence import atk0
 from .state import ModelState, repeat_columns, torch_dtype
 from .utils import resolve_device
+from .utils.profiling import count, span
 
 
 def solar_zenith(lst, lmin, alat, declin, dtype=torch.float64):
@@ -179,28 +180,37 @@ class Model:
         """Initial state of B identical columns on the model's device
         (init sequence of str.f90:72-321), ff and vd cut to the model's
         bins: the whole column is built, then shared out."""
+        with span("init_state"):
+            return self._init_state(B)
+
+    def _init_state(self, B: int) -> ModelState:
         cfg = self.cfg
         cpu = torch.device("cpu")
-        state, consts = initial_state(cfg, self.grids, self.clarke)
+        with span("initial_state"):
+            state, consts = initial_state(cfg, self.grids, self.clarke)
         self.set_consts(consts)
         if self.radiation_enabled and self._radiation is None:
             from .radiation.driver import RadiationDriver
-            self._radiation = RadiationDriver(self)
+            with span("radiation_setup"):
+                self._radiation = RadiationDriver(self)
         if cfg.chem and self._chemistry is None:
-            if cfg.mic and cfg.nkc_l > 0:
-                from .chemistry.driver_aq import MultiphaseDriver
-                self._chemistry = MultiphaseDriver(self)
-            else:
-                from .chemistry.driver import ChemistryDriver
-                self._chemistry = ChemistryDriver(self)
+            with span("chemistry_setup"):
+                if cfg.mic and cfg.nkc_l > 0:
+                    from .chemistry.driver_aq import MultiphaseDriver
+                    self._chemistry = MultiphaseDriver(self)
+                else:
+                    from .chemistry.driver import ChemistryDriver
+                    self._chemistry = ChemistryDriver(self)
         if (cfg.chem and self._photolysis is None
                 and self._radiation is not None):
             from .photolysis.jrates import PhotolysisDriver
-            self._photolysis = PhotolysisDriver(self, self._radiation)
+            with span("photolysis_setup"):
+                self._photolysis = PhotolysisDriver(self, self._radiation)
         if cfg.nuc and self._chemistry is not None \
                 and self._nucleation is None:
             from .physics.nucleation import NucleationDriver
-            self._nucleation = NucleationDriver(self)
+            with span("nucleation_setup"):
+                self._nucleation = NucleationDriver(self)
         atm = atm_tensors(self.grids.atm, self.dtype, cpu)
         turb = atk0(state.met, state.turb, state.surf, atm, cfg.ug, cfg.vg,
                     cfg.z0)
@@ -218,13 +228,15 @@ class Model:
             state = state.replace(chem=self._chemistry.init_chem_state(state))
         # initial radiation call, on the host column
         if self._radiation is not None:
-            state = self._radiation(state, init=True)
+            with span("radiation"):
+                state = self._radiation(state, init=True)
         # initial photolysis rates, computed whatever the sun's height
         if self._photolysis is not None:
             state = self.photolysis_step(
                 state, torch.ones_like(state.rad.u0, dtype=torch.bool))
-        return repeat_columns(self.bins.take_state(state).to(self.device),
-                              B)
+        with span("to_device"):
+            return repeat_columns(
+                self.bins.take_state(state).to(self.device), B)
 
     def photolysis_step(self, state: ModelState, due) -> ModelState:
         """state with photol_j recomputed in the columns where due [B] is
@@ -233,23 +245,28 @@ class Model:
         due (one host check); the JAX package decides per column."""
         u0 = state.rad.u0
         pj = state.chem.photol_j
+        count("sync.photolysis")
         if bool(due.any()):
-            pj = torch.where(due[:, None, None], self._photolysis(state), pj)
+            with span("photolysis"):
+                pj = torch.where(due[:, None, None], self._photolysis(state),
+                                 pj)
         pj = torch.where((u0 > self._chemistry.u0min)[:, None, None], pj,
                          0.0)
         return state.replace(chem=state.chem.replace(photol_j=pj))
 
     # ------------------------------------------------------------------
     def substep(self, state: ModelState, dd: float) -> ModelState:
-        """One 10-s fractional step (dynamics + microphysics + surface)."""
+        """One 10-s fractional step (dynamics + microphysics + surface);
+        a span per operator."""
         cfg = self.cfg
         n = cfg.grid.n
         a0m = self.consts["a0m"]
 
         # turbulent exchange of momentum/heat/moisture/TKE (+ closure)
-        met, turb, kinv = diffusion.difm(
-            state.met, state.turb, state.surf, state.micro, self.atm, dd,
-            cfg.ug, cfg.vg)
+        with span("difm"):
+            met, turb, kinv = diffusion.difm(
+                state.met, state.turb, state.surf, state.micro, self.atm, dd,
+                cfg.ug, cfg.vg)
         state = state.replace(met=met, turb=turb,
                               tim=state.tim.replace(kinv=kinv))
 
@@ -257,34 +274,42 @@ class Model:
         # turbulent exchange of chemical species
         if chemistry is not None:
             field = chemistry.conc_name
-            out = diffusion.difc(
-                {"c": getattr(state.chem, field).transpose(1, 2)},
-                state.met, state.turb, self.atm, dd)
+            with span("difc"):
+                out = diffusion.difc(
+                    {"c": getattr(state.chem, field).transpose(1, 2)},
+                    state.met, state.turb, self.atm, dd)
             state = state.replace(chem=state.chem.replace(
                 **{field: out["c"].transpose(1, 2)}))
 
         if cfg.mic:
             # particle diffusion, condensational growth, settling, then the
             # levels above nf back onto the Koehler curve
-            micro = diffusion.difp(state.micro, state.met, state.turb,
-                                   self.atm, dd, self.bins)
+            with span("difp"):
+                micro = diffusion.difp(state.micro, state.met, state.turb,
+                                       self.atm, dd, self.bins)
             state = state.replace(micro=micro)
             ff_before_kon = state.micro.ff
-            state = growth.kon(self, state, dd)
+            with span("kon"):
+                state = growth.kon(self, state, dd)
             # shift aqueous species between chemistry bins along with the
             # particles that crossed the aerosol/droplet threshold (konc)
             if chemistry is not None:
-                state = state.replace(chem=chemistry.konc(
-                    state.chem, ff_before_kon, state.micro.ff))
-            state = sedimentation.sedp(self, state, dd)
-            met, micro = microphysics.equil(
-                state.met, state.micro, self.micro, a0m, self.b0m, ncase=2,
-                nf=cfg.grid.nf, bins=self.bins)
+                with span("konc"):
+                    state = state.replace(chem=chemistry.konc(
+                        state.chem, ff_before_kon, state.micro.ff))
+            with span("sedp"):
+                state = sedimentation.sedp(self, state, dd)
+            with span("equil"):
+                met, micro = microphysics.equil(
+                    state.met, state.micro, self.micro, a0m, self.b0m,
+                    ncase=2, nf=cfg.grid.nf, bins=self.bins)
         else:
             # non-mic runs keep the boundary-layer top level in equilibrium
-            met, micro = microphysics.equil(
-                state.met, state.micro, self.micro, a0m, self.b0m, ncase=1,
-                nf=cfg.grid.nf, level=cfg.grid.nf - 1, bins=self.bins)
+            with span("equil"):
+                met, micro = microphysics.equil(
+                    state.met, state.micro, self.micro, a0m, self.b0m,
+                    ncase=1, nf=cfg.grid.nf, level=cfg.grid.nf - 1,
+                    bins=self.bins)
         state = state.replace(met=met, micro=micro)
 
         # radiative heating of interior levels
@@ -296,40 +321,53 @@ class Model:
 
         # surface boundary condition: water surface or bare soil
         if cfg.isurf == 0:
-            met, surf_state = surface.surf0(
-                self.clarke_dev, state.met, state.surf, self.atm.eta, dd,
-                rhsurf=cfg.rhsurf, ltwcst=cfg.ltwcst, ntwopt=cfg.ntwopt)
+            with span("surf0"):
+                met, surf_state = surface.surf0(
+                    self.clarke_dev, state.met, state.surf, self.atm.eta,
+                    dd, rhsurf=cfg.rhsurf, ltwcst=cfg.ltwcst,
+                    ntwopt=cfg.ntwopt)
         else:
-            state = state.replace(surf=surface.soil(
-                state.surf, self.grids.soil, dd))
-            met, surf_state = surface.surf1(
-                self.clarke_dev, state.met, state.surf, state.rad, self.atm,
-                self.grids.soil, dd)
+            with span("soil"):
+                state = state.replace(surf=surface.soil(
+                    state.surf, self.grids.soil, dd))
+            with span("surf1"):
+                met, surf_state = surface.surf1(
+                    self.clarke_dev, state.met, state.surf, state.rad,
+                    self.atm, self.grids.soil, dd)
         state = state.replace(met=met, surf=surf_state)
 
         # chemistry: surface exchange then stiff integration
         if chemistry is not None:
             # sea-salt aerosol + ion source (aer_source, kpp.f90:3810-4063)
             if not cfg.chamber:
-                state = chemistry.sea_salt_source(state, dd)
-            chem = state.chem.replace(vg=chemistry.gasdrydep(state))
-            chem = chemistry.sedc(chem, dd, self.atm.deta[1],
-                                  self.atm.detw[1])
+                with span("sea_salt"):
+                    state = chemistry.sea_salt_source(state, dd)
+            with span("gasdrydep"):
+                chem = state.chem.replace(vg=chemistry.gasdrydep(state))
+            with span("sedc"):
+                chem = chemistry.sedc(chem, dd, self.atm.deta[1],
+                                      self.atm.detw[1])
             state = state.replace(chem=chem)
             # wet deposition of dissolved species (sedl)
-            state = state.replace(chem=chemistry.sedl(state, dd))
+            with span("sedl"):
+                state = state.replace(chem=chemistry.sedl(state, dd))
             # eulerian advective source below the inversion (neula=0)
             if cfg.neula == 0:
-                state = state.replace(chem=chemistry.eulerian_advection(
-                    state.chem, state.tim.kinv, chemistry.am3, dd))
+                with span("eulerian"):
+                    state = state.replace(chem=chemistry.eulerian_advection(
+                        state.chem, state.tim.kinv, chemistry.am3, dd))
             conc_before = getattr(state.chem, chemistry.conc_name)
-            state = state.replace(chem=chemistry.integrate_column(state, dd))
+            with span("chem_solve"):
+                state = state.replace(
+                    chem=chemistry.integrate_column(state, dd))
             # aerosol-mass feedback to the particle grid (stem_kpp,
             # str.f90:5975-6134)
-            state = chemistry.aerosol_mass_feedback(state, conc_before)
+            with span("feedback"):
+                state = chemistry.aerosol_mass_feedback(state, conc_before)
             # nucleation after chemistry (str.f90:397-405)
             if self._nucleation is not None:
-                state, _ = self._nucleation(state, dd)
+                with span("nucleation"):
+                    state, _ = self._nucleation(state, dd)
 
         tim = state.tim.replace(time=state.tim.time + dd)
         return state.replace(tim=tim)
@@ -349,7 +387,8 @@ class Model:
         # chamber mode)
         if self.cfg.chamber:
             return state
-        vd, xra = sedimentation.partdep(self, state)
+        with span("partdep"):
+            vd, xra = sedimentation.partdep(self, state)
         return state.replace(micro=state.micro.replace(vd=vd, xra=xra))
 
     def post_minute(self, state: ModelState) -> ModelState:
@@ -359,7 +398,8 @@ class Model:
                           self.astro.declin, self.dtype)
         state = state.replace(rad=state.rad.replace(u0=u0))
         if self._radiation is not None:
-            state = self._radiation(state, init=False)
+            with span("radiation"):
+                state = self._radiation(state, init=False)
         # photolysis rates: recompute on even minutes when the sun is up,
         # hold when sun up on odd minutes, zero when dark (str.f90:445-476)
         if self._photolysis is not None:
@@ -369,8 +409,12 @@ class Model:
 
     def minute_step(self, state: ModelState) -> ModelState:
         """One outer 1-minute step: clock, 6 substeps, radiation and
-        photolysis."""
-        state = self.pre_minute(state)
-        for _ in range(6):
-            state = self.substep(state, 10.0)
-        return self.post_minute(state)
+        photolysis (a ``minute`` span around them)."""
+        with span("minute"):
+            with span("pre_minute"):
+                state = self.pre_minute(state)
+            for _ in range(6):
+                with span("substep"):
+                    state = self.substep(state, 10.0)
+            with span("post_minute"):
+                return self.post_minute(state)

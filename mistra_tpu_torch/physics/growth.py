@@ -26,6 +26,7 @@ import torch
 
 from ..constants import CP, PI, R0, R1, RHOW
 from ..parallel.bins import BinShard
+from ..utils.profiling import count
 from . import bott_cuda
 from .thermo import p21
 
@@ -375,6 +376,7 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
     itk = torch.zeros(B, dtype=torch.int32, device=ffk.device)
     while True:
         running = (itk < newton_iters) & (~done).any(dim=1)     # [B]
+        count("sync.newton")
         if not bool(running.any()):
             break
         u = velocities(fquer)

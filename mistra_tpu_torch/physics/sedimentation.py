@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import CP, G, KAPPA, PI, R0, RHOW
+from ..utils.profiling import count
 
 SEDP_MAX_SPLITS = 64
 
@@ -189,6 +190,7 @@ def sedp(model, state, dt):
     while True:
         act = active_bin & (dt0 > 0.1)
         running = act.flatten(1).any(dim=1) & (it < SEDP_MAX_SPLITS)
+        count("sync.sedp")
         if not bool(running.any()):
             break
         dtmax = torch.minimum(dt0, x3 / torch.clamp(-ww, min=1e-300))

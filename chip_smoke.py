@@ -11,6 +11,10 @@ Phases (any failure exits non-zero):
      and sets each time beside its bound (the least time the card could
      take: bytes over the memory rate against operations over the peak
      rate, the larger of the two);
+  2b. the sedimentation kernel (csrc/sed.cu) against its plain version at
+     the main path's shapes in float32 (btz96.ens64's and multiphase.ens8's
+     sedp, ens8's sedl with its 8 splits): bit-equal, both timed with CUDA
+     events, the kernel beside its bound;
   3. main path: the BTZ96 minute step (mic=T, chem=F, PIFM2 radiation on)
      at the production grid in float32 for 64 columns, three minutes, with
      the kernels' launch counters read around them; then the radiation
@@ -109,11 +113,11 @@ Phases (any failure exits non-zero):
      profc.out, the chemistry output, the budgets defined); (d) (a)'s
      settings for 4 minutes with --profile, whose trace must hold
      bott_dwsum_kernel events.  Every output file present and finite;
-     each run's kernel launches as the CLI counts them (dwsum and advect
-     in (a), all three in (c)), its seconds per minute and host ms per
-     snapshot (the initial record, with its first-call set-up; with the
-     2-D spectrum ff; without) and per checkpoint, the writer it took and
-     whether the host has libnetcdf;
+     each run's kernel launches as the CLI counts them (dwsum, advect and
+     sedp's sedimentation kernel in (a), all five in (c)), its seconds
+     per minute and host ms per snapshot (the initial record, with its
+     first-call set-up; with the 2-D spectrum ff; without) and per
+     checkpoint, the writer it took and whether the host has libnetcdf;
  17. the tp split: ff's dry-aerosol axis over TP = 2 ranks, spawned
      processes joined by torch.distributed (nccl with a card each where
      the host has two cards, else gloo with both ranks on cuda:0; the
@@ -162,6 +166,12 @@ the gas and tot mechanisms of phases 8 and 10; chamber.dat is $INPDIR's
 (photolys/chamber.dat) where it holds one, else a synthetic stand-in
 (mistra_tpu_torch.boxmodel.write_synthetic_chamber_dat; not the
 reference's measurements).
+
+In every minute run of phases 3, 8, 10 and 12-14, in (d) and in each tp
+rank of phase 17, the sedimentation kernel's launches are held to one per
+pass of sedp's Courant loop (its host checks, ``sync.sedp``, less one per
+call) and one per sedl call, at least one per substep on a path with
+mic=T and one sedl call per substep on a path with the multiphase driver.
 
 The last two lines are a JSON object of per-kernel results and the
 device line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -238,6 +248,16 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 # deposit's few compares and adds per bin are left out (a lower bound)
 BOTT_SCAN_OPS_PER_BIN = 4
 BOTT_OPS_PER_SOURCE = 100
+# the sedimentation kernel (phase 2b): ~75 operations per level of a row's
+# Bott walk; the main path's shapes (what, columns, sedl's splits or not)
+# at nf = 100 in float32, sedl's rows 315 aqueous species per column (the
+# tot mechanism's 4 bins)
+SED_OPS_PER_LEVEL = 75
+SED_NF = 100
+SED_SEDL_ROWS = 315
+SED_CASES = (("btz96.ens64 sedp", 64, False),
+             ("multiphase.ens8 sedp", 8, False),
+             ("multiphase.ens8 sedl", 8, True))
 
 # stiff chemistry solve (phases 5-7)
 DEVICE = "cuda"
@@ -589,6 +609,92 @@ def phase_kernels(growth, bott_cuda):
                            torch.float32, growth.BAND, seed=1, plain_reps=3)
 
 
+def sed_inputs(columns: int, nsplit: int, seed: int):
+    """The sedimentation kernel's inputs at a main-path shape, float32 on
+    the card, nf = SED_NF.  sedp (nsplit 0): columns x 70 x 70 rows of
+    psi, lognormal with empty bins, Courant numbers in [-1, 0], the
+    upstream form where the production grid's rq < 1 um.  sedl: columns x
+    SED_SEDL_ROWS rows, Courant numbers per second of 1e-5..0.1 (one split
+    of 10 s, as the main path's droplets take), dt0 10 s."""
+    from mistra_tpu_torch import MistraConfig
+    from mistra_tpu_torch.grids import make_grids
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    rows = columns * (SED_SEDL_ROWS if nsplit else 70 * 70)
+    psi = rng.lognormal(0.0, 2.0, (rows, SED_NF))
+    psi[rng.uniform(size=rows) < 0.3] = 0.0
+
+    def as_t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    if nsplit:
+        c = -rng.uniform(0.0, 1.0, (rows, SED_NF)) \
+            * 10.0 ** rng.uniform(-5.0, -1.0, (rows, 1))
+        c[:, -1] = 0.0
+        c = as_t(c)
+        xxxt = -0.999 / c[:, 1]
+        return c, as_t(psi), xxxt, torch.full_like(xxxt, DT)
+    up = make_grids(MistraConfig()).micro.rq < 1.0
+    up = torch.tensor(np.broadcast_to(up, (columns, 70, 70)).reshape(rows),
+                      device=dev)
+    return as_t(-rng.uniform(0.0, 1.0, (rows, SED_NF))), as_t(psi), up
+
+
+def phase_sed():
+    """The sedimentation kernel (csrc/sed.cu) against its plain version at
+    the main path's shapes (SED_CASES, float32): bit-equal, kernel and
+    plain ms by CUDA events, the bound (bytes: c and psi read, psi written
+    once; per-row values besides) and launches per call."""
+    from mistra_tpu_torch.chemistry.driver_aq import SEDL_SPLITS
+    from mistra_tpu_torch.physics import sed_cuda
+    from mistra_tpu_torch.physics import sedimentation as sed
+    out = {}
+    for i, (what, columns, splits) in enumerate(SED_CASES):
+        nsplit = SEDL_SPLITS if splits else 0
+        args = sed_inputs(columns, nsplit, seed=i)
+        if nsplit:
+            c, psi, xxxt, dt0 = args
+            kernel = lambda: sed_cuda.advsed_splits(c, psi, xxxt, dt0,
+                                                    nsplit)
+            plain = lambda: sed.advsed1_splits_plain(c, psi, xxxt, dt0,
+                                                     nsplit)
+            left, walks = dt0.clone(), 0
+            for _ in range(nsplit):
+                act = left > 0.1
+                walks += int(act.sum())
+                left = torch.where(act, left - torch.minimum(left, xxxt),
+                                   left)
+            extra = 3 * psi.shape[0] * psi.element_size()
+        else:
+            c, psi, up = args
+            kernel = lambda: sed_cuda.advsed(c, psi, up)
+            plain = lambda: torch.where(up[:, None], sed.advsed0(c, psi),
+                                        sed.advsed1(c, psi))
+            walks, extra = psi.shape[0], up.numel()
+        # psi (and sedl's ground deposit), bit for bit
+        pairs = zip(*(r if nsplit else (r,) for r in (kernel(), plain())))
+        bit_equal = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                        for g, w in pairs)
+        check(bit_equal, f"sed kernel differs from plain ({what})")
+        sed_cuda.reset_counts()
+        kernel()
+        launches = sed_cuda.advsed.launches + sed_cuda.advsed_splits.launches
+        ms = cuda_ms(kernel, reps=20)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        b = bound(3 * psi.numel() * psi.element_size() + extra,
+                  SED_OPS_PER_LEVEL * SED_NF * walks, psi.dtype)
+        out[what] = {"shape": f"{psi.shape[0]}x{SED_NF}", "nsplit": nsplit,
+                     "walks": walks, "bit_equal": bit_equal, "ms": ms,
+                     "plain_ms": plain_ms, "launches_per_call": launches,
+                     **b, "roofline_share": b["bound_ms"] / ms}
+        log(f"sed {what} [{psi.shape[0]} x {SED_NF}] f32, {walks} row "
+            f"walks: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), share "
+            f"{100 * b['bound_ms'] / ms:.1f} %, bit-equal {bit_equal}, "
+            f"{launches:g} launch per call")
+    return out
+
+
 def input_dir(tmp: str) -> str:
     """tmp, holding the input tables of the BTZ96 and chem=T steps: links
     to INPDIR's reference tables where it holds them, else the synthetic
@@ -780,7 +886,8 @@ def main_path_rows(model, state, growth, bott_cuda):
 
 
 def phase_main(inpdir, bott_cuda):
-    """The BTZ96 minute step on the card; returns the launch counts."""
+    """The BTZ96 minute step on the card; returns the launch counts (the
+    sedimentation kernel's held to sedp's passes)."""
     from mistra_tpu_torch import Model
     cfg = model_config(inpdir, "float32")
     model = Model(cfg, device=DEVICE)
@@ -791,13 +898,15 @@ def phase_main(inpdir, bott_cuda):
 
     bott_cuda.reset_counts()
     times = []
-    for _ in range(MAIN_MINUTES):
-        t0 = time.perf_counter()
-        state = model.minute_step(state)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    with sed_calls() as seen:
+        for _ in range(MAIN_MINUTES):
+            t0 = time.perf_counter()
+            state = model.minute_step(state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     counts = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
-              "bott_advect": bott_cuda.bott_advect.launches}
+              "bott_advect": bott_cuda.bott_advect.launches,
+              **sed_counts(seen, "main path")}
 
     gp = cfg.grid
     check_state(state, "main path")
@@ -809,6 +918,9 @@ def phase_main(inpdir, bott_cuda):
     # every substep runs at least one Newton iteration and one replay
     check(counts["bott_dwsum"] >= 6 * MAIN_MINUTES, f"launches {counts}")
     check(counts["bott_advect"] == 6 * MAIN_MINUTES, f"launches {counts}")
+    # sedp: one launch per pass, at least one pass per substep; no sedl
+    check(counts["sed_advect"] >= 6 * MAIN_MINUTES
+          and counts["sed_splits"] == 0, f"launches {counts}")
 
     check(bool((state.rad.dtrad != 0).any()), "radiation left dtrad zero")
 
@@ -1248,6 +1360,56 @@ def ros3_solves(*kernels):
             k.integrate = f
 
 
+@contextlib.contextmanager
+def sed_calls():
+    """While open, the dict it yields counts sedp's calls (``sedp``), its
+    host checks (``sync.sedp``: one per Courant pass and one that ends the
+    loop) and sedl's calls that reach the splits (``sync.sedl``), whether
+    the tracer is on or not; the sedimentation kernel's counters are set
+    to 0 on entry (``sed_counts`` reads them)."""
+    from mistra_tpu_torch.chemistry import driver_aq
+    from mistra_tpu_torch.physics import sed_cuda
+    from mistra_tpu_torch.physics import sedimentation as sed
+    seen = {"sedp": 0, "sync.sedp": 0, "sync.sedl": 0}
+    saved = sed.sedp, sed.count, driver_aq.count
+
+    def counting(f):
+        def count(name, n=1):
+            if name in seen:
+                seen[name] += n
+            f(name, n)
+        return count
+
+    def sedp(*a, **kw):
+        seen["sedp"] += 1
+        return saved[0](*a, **kw)
+
+    sed.sedp, sed.count = sedp, counting(saved[1])
+    driver_aq.count = counting(saved[2])
+    sed_cuda.reset_counts()
+    try:
+        yield seen
+    finally:
+        sed.sedp, sed.count, driver_aq.count = saved
+
+
+def sed_counts(seen, what):
+    """The sedimentation kernel's launches since ``sed_calls`` opened seen:
+    advsed (``sed_advect``) once per sedp pass, advsed_splits
+    (``sed_splits``) once per sedl call, checked."""
+    from mistra_tpu_torch.physics import sed_cuda
+    counts = {"sed_advect": sed_cuda.advsed.launches,
+              "sed_splits": sed_cuda.advsed_splits.launches}
+    passes = seen["sync.sedp"] - seen["sedp"]
+    check(counts["sed_advect"] == passes,
+          f"{what}: sed_advect launches {counts['sed_advect']} != {passes} "
+          f"sedp passes in {seen['sedp']} calls")
+    check(counts["sed_splits"] == seen["sync.sedl"],
+          f"{what}: sed_splits launches {counts['sed_splits']} != "
+          f"{seen['sync.sedl']} sedl calls")
+    return counts
+
+
 def ros3_summary(infos):
     """One kernel's integrate calls: Ros3 steps and failures per cell
     [calls, cells], and the loop iterations (each call's largest step
@@ -1264,12 +1426,13 @@ def ros3_summary(infos):
 def run_minutes(step, state, minutes, kernels, bott_cuda, lu_cuda,
                 after_minute=None):
     """minutes of step(state) with every kernel's launch counter set to 0
-    just before and read just after, and the Ros3 solves of kernels
+    just before and read just after (the sedimentation kernel's checked
+    against sedp's passes and sedl's calls), and the Ros3 solves of kernels
     recorded; after_minute(minute, state) runs after each minute, outside
     the timing.  Returns (state, minute times in s, launch counts, one
     ``ros3_summary`` per kernel)."""
     times = []
-    with ros3_solves(*kernels) as solves:
+    with ros3_solves(*kernels) as solves, sed_calls() as seen:
         bott_cuda.reset_counts()
         lu_cuda.reset_counts()
         for minute in range(minutes):
@@ -1282,7 +1445,8 @@ def run_minutes(step, state, minutes, kernels, bott_cuda, lu_cuda,
                 after_minute(minute, state)
         counts = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
                   "bott_advect": bott_cuda.bott_advect.launches,
-                  "batched_inv": lu_cuda.batched_inv.launches}
+                  "batched_inv": lu_cuda.batched_inv.launches,
+                  **sed_counts(seen, "minute run")}
     return state, times, counts, [ros3_summary(c) for c in solves]
 
 
@@ -1318,21 +1482,31 @@ def profile_minute(what, step, state, fig):
                    {"kernel": n, "launches": c, "ms": t} for n, c, t in top])
 
 
-def check_launches(what, counts, iterations, bott, minutes=MODE_MINUTES):
+def check_launches(what, counts, iterations, bott, minutes=MODE_MINUTES,
+                   sedl=False):
     """The inverse launched twice per Ros3 iteration; both Bott kernels
-    launched (dwsum at least once, advect once per substep) in minutes
-    minutes of a path with particle growth (bott), neither on one
-    without."""
+    launched (dwsum at least once, advect once per substep) and the
+    sedimentation kernel at least once per substep (sedp's passes) in
+    minutes minutes of a path with the particle physics (bott), none of
+    them on one without; the sedimentation kernel's splits once per
+    substep on a path with the multiphase driver's sedl, never on one
+    without (``run_minutes`` held the sedimentation launches to sedp's
+    passes and sedl's calls)."""
     check(counts["batched_inv"] == 2 * iterations,
           f"{what}: batched_inv launches {counts['batched_inv']} != 2 x "
           f"{iterations} Ros3 iterations")
     if bott:
         check(counts["bott_dwsum"] >= 6 * minutes
-              and counts["bott_advect"] == 6 * minutes,
-              f"{what}: Bott launches {counts}")
+              and counts["bott_advect"] == 6 * minutes
+              and counts["sed_advect"] >= 6 * minutes,
+              f"{what}: Bott and sedp launches {counts}")
     else:
-        check(counts["bott_dwsum"] == counts["bott_advect"] == 0,
-              f"{what}: Bott launches {counts} without particle growth")
+        check(counts["bott_dwsum"] == counts["bott_advect"]
+              == counts["sed_advect"] == 0,
+              f"{what}: Bott and sedp launches {counts} without the "
+              f"particle physics")
+    check(counts["sed_splits"] == (6 * minutes if sedl else 0),
+          f"{what}: sedl launches {counts['sed_splits']}")
 
 
 def check_state(state, what):
@@ -1612,7 +1786,7 @@ def phase_multiphase(inpdir, mechdir, growth, bott_cuda, lu_cuda):
           "J-rates all zero in a noon column")
     check(bool((pj[~noon] == 0.0).all()), "J-rates in a midnight column")
     check_launches("multiphase minute", counts, it_tot + it_gas, bott=True,
-                   minutes=MP_MINUTES)
+                   minutes=MP_MINUTES, sedl=True)
     nonconv = state.chem.nonconv.cpu().numpy()
     fig = minute_figures(B, times, counts, it_tot + it_gas,
                          int(nonconv.sum()))
@@ -2161,7 +2335,8 @@ def phase_cli(inpdir, totdir):
     ``python -m mistra_tpu_torch`` in a subprocess; every output present
     and finite, the restart run within CLI_RESTART_TOL of the run in one
     piece, each run's kernel launches as the CLI counted them (dwsum,
-    advect and, with chemistry, the inverse launched), its seconds per
+    advect and sedp's sedimentation kernel launched, and with the
+    multiphase chemistry the inverse and sedl's), its seconds per
     minute and host ms per snapshot and per checkpoint, the writer taken
     and the profiler trace's dwsum events."""
     from mistra_tpu_torch.io import netcdf as ncio
@@ -2189,8 +2364,10 @@ def phase_cli(inpdir, totdir):
         check(noon.exists(), f"no 12:00 checkpoint {noon}")
         check(finite_text(d / "a" / "profm.out").count("# day") == 1,
               "one hourly profile block expected")
-        for k in ("bott_dwsum", "bott_advect"):
+        for k in ("bott_dwsum", "bott_advect", "sed_advect"):
             check(res["a"]["launches"][k] > 0, f"(a): {k} not launched")
+        check(res["a"]["launches"]["sed_splits"] == 0,
+              "(a): sedl's kernel launched without chemistry")
         # (b) 2 minutes from (a)'s 12:00 checkpoint
         _, res["b"] = run_cli("(b) restart 2 minutes", [
             "--namelist", nml, "--outdir", str(d / "b"), "--restart",
@@ -2225,7 +2402,8 @@ def phase_cli(inpdir, totdir):
             "--namelist", cnml, "--outdir", str(d / "c"), "--restart",
             cstart, "--minutes", str(CLI_CHEM_MINUTES)])
         check_cli_outputs(d / "c", ccfg, chem=True)
-        for k in ("bott_dwsum", "bott_advect", "batched_inv"):
+        for k in ("bott_dwsum", "bott_advect", "batched_inv", "sed_advect",
+                  "sed_splits"):
             check(res["c"]["launches"][k] > 0, f"(c): {k} not launched")
         # (d) --profile: minutes 2-4 traced
         _, res["d"] = run_cli("(d) profile 4 minutes", [
@@ -2440,7 +2618,10 @@ def tp_check_launches(r, what, fig, tp1, newton_flips=0):
     give or take newton_flips (subkon's Newton loop launches it once per
     iteration, and its exit test reads sums over the bins whose order
     differs from tp=1's), advect once per substep, the inverse twice per
-    Ros3 iteration of the rank's own (replicated) solves."""
+    Ros3 iteration of the rank's own (replicated) solves, the
+    sedimentation kernel at least once per substep (once per pass of the
+    rank's own sedp loop, which ``run_minutes`` checked) and its splits as
+    tp=1's (once per sedl call)."""
     la, l1 = fig["launches"], tp1["launches"]
     check(abs(la["bott_dwsum"] - l1["bott_dwsum"]) <= newton_flips,
           f"tp rank {r} {what}: dwsum {la['bott_dwsum']} launches, tp=1 "
@@ -2450,7 +2631,19 @@ def tp_check_launches(r, what, fig, tp1, newton_flips=0):
     check(la["batched_inv"] == 2 * fig["ros3_iterations"],
           f"tp rank {r} {what}: batched_inv {la['batched_inv']} for "
           f"{fig['ros3_iterations']} Ros3 iterations")
+    check(la["sed_advect"] >= 6 * TP_MINUTES
+          and la["sed_splits"] == l1["sed_splits"],
+          f"tp rank {r} {what}: sedimentation launches {la} (tp=1 {l1})")
     check(fig["allreduce_calls"] > 0, f"tp rank {r} {what}: no all_reduce")
+
+
+def tp_shared(fig, k):
+    """fig[k] as every rank's should read: the launches without
+    sed_advect, whose count follows sedp's passes over the rank's own
+    bins."""
+    if k == "launches":
+        return {n: c for n, c in fig[k].items() if n != "sed_advect"}
+    return fig[k]
 
 
 def tp_log_rank(fig, tp1):
@@ -2537,7 +2730,7 @@ def phase_tp(inpdir, gasdir, totdir, bott_cuda, lu_cuda, mp_tp1=None):
                                   int(state.chem.nonconv.sum()))
         check_launches("tp=1 multiphase minute", counts,
                        ref["d"]["ros3_iterations"], bott=True,
-                       minutes=TP_MINUTES)
+                       minutes=TP_MINUTES, sedl=True)
         del model, drv, state
     cmp, ref_end = tp_start_states(
         {"BTZ96": model_config(inpdir, "float64"),
@@ -2583,8 +2776,8 @@ def phase_tp(inpdir, gasdir, totdir, bott_cuda, lu_cuda, mp_tp1=None):
               "launched the inverse")
         for k in ("launches", "allreduce_calls", "allreduce_bytes_per_minute",
                   "ros3_iterations", "nonconv"):
-            check(all(x[k] == ranks[0][p][k] for p, x in
-                      (("a", a), ("b", b), ("d", d))),
+            check(all(tp_shared(x, k) == tp_shared(ranks[0][p], k)
+                      for p, x in (("a", a), ("b", b), ("d", d))),
                   f"tp ranks 0 and {r} differ in {k}")
         out["ranks"].append({"rank": r, "device": res["device"],
                              "bins": res["bins"], "btz96": a, "chem_t": b,
@@ -2654,7 +2847,7 @@ def check_ptxas(text: str) -> None:
         return
     import re
     for name, r in sorted(ptxas_report(text).items()):
-        hit = re.search(r"\d+((?:gj_inverse|bott)\w*)", name)
+        hit = re.search(r"\d+((?:gj_inverse|bott|sed)\w*)", name)
         short = hit.group(1) if hit else name
         log(f"ptxas: {short[:70]}: "
             f"{r.get('registers')} registers, {r.get('stack')} B stack, "
@@ -2712,6 +2905,7 @@ def main() -> int:
 
     from mistra_tpu_torch.chemistry import lu_cuda
     kernels = timed("phase 2", phase_kernels, growth, bott_cuda)
+    sed_shapes = timed("phase 2b", phase_sed)
     with tempfile.TemporaryDirectory(prefix="mistra_inp_") as tmp, \
             tempfile.TemporaryDirectory(prefix="mistra_gas_") as gas_tmp, \
             tempfile.TemporaryDirectory(prefix="mistra_tot_") as ttmp:
@@ -2872,6 +3066,30 @@ def main() -> int:
         "shape": " + ".join(r["shape"] for r in main_calls),
         "all": [{k: r[k] for k in shape_keys}
                 for r in lu_results.values()]})
+
+    def sed_launches(c):
+        """sedp's launches (advsed, once per Courant pass) and sedl's
+        (advsed_splits, once per call) in a path's counts."""
+        return {"sedp": c["sed_advect"], "sedl": c["sed_splits"]}
+
+    rows.append({
+        "name": "sed_advect", "route": "cuda",
+        "source": "mistra_tpu_torch/csrc/sed.cu", "replaces": None,
+        "launches": sed_launches(counts),
+        "launches_per_minute": counts["sed_advect"] / MAIN_MINUTES,
+        "launches_chem_t": sed_launches(chem_t_counts),
+        "launches_multiphase": sed_launches(mp_counts),
+        "launches_per_multiphase_minute": {
+            k: v / MP_MINUTES for k, v in sed_launches(mp_counts).items()},
+        **{f"launches_{p}": sed_launches(c) for p, c in mode_counts.items()},
+        "launches_cli": sed_launches(main["cli"]["a"]["launches"]),
+        "launches_cli_chem": sed_launches(main["cli"]["c"]["launches"]),
+        # per tp rank: BTZ96 (phase 17 a), chem=T (b), multiphase (d)
+        **{f"launches_tp{suffix}": [sed_launches(r[what]["launches"])
+                                    for r in tp["ranks"]]
+           for suffix, what in (("", "btz96"), ("_chem_t", "chem_t"),
+                                ("_multiphase", "multiphase"))},
+        "shapes": sed_shapes})
     log(json.dumps({"main_path": main}))
     log(json.dumps({"kernels": rows}))
     log(card_line())

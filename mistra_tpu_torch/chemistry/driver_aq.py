@@ -18,8 +18,9 @@ The couplers to the microphysics:
   aerosol/droplet threshold in kon (kpp.f90:3370-3590); the JAX
   ``lax.scan`` over dry bins is a fixed-count Python loop;
 - ``sedl``: wet deposition of the aqueous species (str.f90:2627-2792)
-  with the JAX package's fixed 8 Courant sub-iterations as a masked loop
-  (the residual it drops is matched, a known defect; ROADMAP.md);
+  with the JAX package's fixed 8 Courant sub-iterations, one kernel
+  launch on a card (``sedimentation.advsed1_splits``; the residual it
+  drops is matched, a known defect; ROADMAP.md);
 - ``aerosol_mass_feedback``: particles move along the dry-mass grid when
   chemistry changes their soluble mass (str.f90:5975-6134).  The JAX
   package's one-hot scatter matrix W stays: a batched matrix product is
@@ -609,7 +610,7 @@ class MultiphaseDriver(ChemistryDriver):
         species settle at the bin's fall velocity through levels 1..nf-1
         into the surface reservoir (level 0, mol/m2), every bin's rows in
         one batch of the Bott advection."""
-        from ..physics.sedimentation import advsed1, vterm
+        from ..physics.sedimentation import advsed1_splits, vterm
         nf = self.model.cfg.grid.nf
         met = state.met
         chem = state.chem
@@ -653,20 +654,12 @@ class MultiphaseDriver(ChemistryDriver):
         conc = chem.conc.clone()
         sk = conc[:, idx, 1:nf] * detw[1:nf]
         psi = torch.cat([sk[..., :1], sk], dim=-1)  # ghost level
-        ground = torch.zeros_like(psi[..., 0])
-        dt0 = torch.full_like(xxxt, dt)
-        for _ in range(SEDL_SPLITS):
-            dtmax = torch.minimum(dt0, xxxt)
-            active = dt0 > 0.1
-            c_arr = cc * dtmax[..., None]
-            c_arr = torch.cat([c_arr[..., 1:2], c_arr[..., 1:nf - 1],
-                               torch.zeros_like(c_arr[..., :1])], dim=-1)
-            psi_in = torch.cat([psi[..., 1:2], psi[..., 1:]], dim=-1)
-            out = advsed1(c_arr, psi_in)
-            ground_new = ground + out[..., 0] - psi_in[..., 1]
-            psi = torch.where(active[..., None], out, psi)
-            ground = torch.where(active, ground_new, ground)
-            dt0 = torch.where(active, dt0 - dtmax, dt0)
+        # Courant numbers per second on the advection's levels: level 1's
+        # on the ghost level too, none at the top
+        cc = torch.cat([cc[..., 1:2], cc[..., 1:nf - 1],
+                        torch.zeros_like(cc[..., :1])], dim=-1)
+        psi, ground = advsed1_splits(cc, psi, xxxt, torch.full_like(xxxt, dt),
+                                     SEDL_SPLITS)
         conc[:, idx, 1:nf - 1] = psi[..., 1:nf - 1] / detw[1:nf - 1]
         # level 0 is the surface reservoir in column-integral units
         # [mol/m2] (sedc's convention): psi = conc*detw is mol/m2

@@ -44,7 +44,7 @@ from .io.checkpoint import restore_checkpoint, save_checkpoint
 from .io.output import OutputWriter
 from .io.profiles import host
 from .model import Model
-from .physics import bott_cuda
+from .physics import bott_cuda, sed_cuda
 from .utils import profiling, resolve_device
 from .utils.profiling import span, trace
 
@@ -217,6 +217,7 @@ def main(argv=None):
         # the plain versions that run on the CPU count nothing)
         bott_cuda.reset_counts()
         lu_cuda.reset_counts()
+        sed_cuda.reset_counts()
         if args.profile:
             stack.enter_context(profiling.tracing())
         sync()
@@ -303,7 +304,9 @@ def main(argv=None):
         sync()
         launches = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
                     "bott_advect": bott_cuda.bott_advect.launches,
-                    "batched_inv": lu_cuda.batched_inv.launches}
+                    "batched_inv": lu_cuda.batched_inv.launches,
+                    "sed_advect": sed_cuda.advsed.launches,
+                    "sed_splits": sed_cuda.advsed_splits.launches}
 
         with profiling.tracing(), span("checkpoint"):
             save_checkpoint(os.path.join(args.outdir, "restart.pt"), state)

@@ -29,7 +29,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# C signatures of csrc/bott.cu and csrc/lu.cu
+# C signatures of csrc/bott.cu, csrc/lu.cu and csrc/sed.cu
 _SIGNATURES = {
     "bott_advect_f32": [_P, _P, _P, _I, _I, _I, _D, _P],
     "bott_advect_f64": [_P, _P, _P, _I, _I, _I, _D, _P],
@@ -39,6 +39,8 @@ _SIGNATURES = {
     "batched_inv_f64": [_P, _P, _I, _I, _P],
     "batched_inv_plan_f32": [_I, _P],
     "batched_inv_plan_f64": [_I, _P],
+    "sed_advect_f32": [_P] * 7 + [_I, _I, _I, _P],
+    "sed_advect_f64": [_P] * 7 + [_I, _I, _I, _P],
 }
 
 _lib = None

@@ -9,9 +9,13 @@ advection with upstream/Bott-4th order selection by radius), ``advsed0/1``
 Seinfeld & Pandis resistance scheme).
 
 The Bott limiter's top-down flux recurrence (a ``lax.scan`` in JAX) is a
-Python loop over levels with bins and columns batched; the Courant
-time-splitting while-loop runs while any column has an active bin, and a
-column that has stopped keeps its values.
+Python loop over levels with bins and columns batched (``advsed1``).
+sedp's per-row choice of form (``advsed``) and sedl's Courant splits
+(``advsed1_splits``) take, for CUDA tensors, one launch of the
+hand-written kernel (``sed_cuda``, ``csrc/sed.cu``) and for CPU tensors
+the plain versions.  The Courant time-splitting while-loop of sedp runs
+while any column has an active bin, and a column that has stopped keeps
+its values.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from ..constants import CP, G, KAPPA, PI, R0, RHOW
 from ..utils.profiling import count
+from . import sed_cuda
 
 SEDP_MAX_SPLITS = 64
 
@@ -140,6 +145,44 @@ def advsed1(c, y):
     return torch.cat([ylo[..., None], interior, ytop[..., None]], dim=-1)
 
 
+def advsed(c, y, upstream):
+    """Each row of y [..., nf] advected by c: ``advsed0`` where the bool
+    ``upstream`` [...] is set, ``advsed1`` elsewhere; one kernel launch
+    for CUDA tensors."""
+    if y.is_cuda:
+        return sed_cuda.advsed(c, y, upstream)
+    return torch.where(upstream[..., None], advsed0(c, y), advsed1(c, y))
+
+
+def advsed1_splits(c, psi, xxxt, dt0, nsplit):
+    """sedl's ``nsplit`` Courant splits of psi [..., nf]: (psi, ground
+    [...]) as ``advsed1_splits_plain``; one kernel launch for CUDA
+    tensors."""
+    if psi.is_cuda:
+        return sed_cuda.advsed_splits(c, psi, xxxt, dt0, nsplit)
+    return advsed1_splits_plain(c, psi, xxxt, dt0, nsplit)
+
+
+def advsed1_splits_plain(c, psi, xxxt, dt0, nsplit):
+    """Fixed Courant splitting of Bott's advection (sedl): ``nsplit``
+    times, where a row's dt0 [...] exceeds 0.1 s, psi is advected by
+    c * dtmax with dtmax = min(dt0, xxxt), its ghost level psi[0] set to
+    psi[1]; what leaves level 1 adds to the row's ground deposit and dtmax
+    is taken from dt0.  The dt0 left after the last split is dropped (the
+    JAX package's bound, matched).  Returns psi and ground."""
+    ground = torch.zeros_like(psi[..., 0])
+    for _ in range(nsplit):
+        dtmax = torch.minimum(dt0, xxxt)
+        active = dt0 > 0.1
+        psi_in = torch.cat([psi[..., 1:2], psi[..., 1:]], dim=-1)
+        out = advsed1(c * dtmax[..., None], psi_in)
+        ground_new = ground + out[..., 0] - psi_in[..., 1]
+        psi = torch.where(active[..., None], out, psi)
+        ground = torch.where(active, ground_new, ground)
+        dt0 = torch.where(active, dt0 - dtmax, dt0)
+    return psi, ground
+
+
 # --------------------------------------------------------------------------
 # sedp: settling of all bins with per-bin Courant time splitting
 # --------------------------------------------------------------------------
@@ -180,7 +223,8 @@ def sedp(model, state, dt):
     psi = torch.cat([psi_body[..., :1], psi_body], dim=-1)
 
     active_bin = psi_body.sum(dim=-1) > 1.0e-6         # [B, nkt, nka]
-    small = (rq < 1.0)[..., None]
+    # the upstream form below 1 um, Bott's above
+    small = (rq < 1.0).expand(ww.shape).contiguous()
 
     x3 = deta[1]  # deta(2), positive
     dt0 = torch.where(active_bin, torch.full_like(ww, dt), 0.0)
@@ -204,7 +248,7 @@ def sedp(model, state, dt):
         psi_in = torch.cat([psi[..., 1:2], psi[..., 1:]], dim=-1)
         x1 = psi_in[..., 1]
 
-        psi_new = torch.where(small, advsed0(c, psi_in), advsed1(c, psi_in))
+        psi_new = advsed(c, psi_in, small)
 
         upd = act & running[:, None, None]
         psi = torch.where(upd[..., None], psi_new, psi)

@@ -124,7 +124,17 @@ def test_advsed_match_jax():
     y = rng.uniform(0.0, 1.0, (7, 5, nf)) * 10.0 ** rng.uniform(-3, 0,
                                                                (7, 5, nf))
     c = -rng.uniform(0.0, 0.9, (7, 5, nf))
-    for jf, tf in ((jsed.advsed0, tsed.advsed0), (jsed.advsed1, tsed.advsed1)):
+    # sedp's per-row choice of the form (the kernel's flag)
+    up = rng.uniform(size=(7, 5)) < 0.5
+
+    def jax_mixed(c, y):
+        return jnp.where(up[..., None], jsed.advsed0(c, y), jsed.advsed1(c, y))
+
+    def port_mixed(c, y):
+        return tsed.advsed(c, y, torch.tensor(up))
+
+    for jf, tf in ((jsed.advsed0, tsed.advsed0), (jsed.advsed1, tsed.advsed1),
+                   (jax_mixed, port_mixed)):
         want = jf(jnp.asarray(c), jnp.asarray(y))
         got = tf(torch.tensor(c), torch.tensor(y))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,

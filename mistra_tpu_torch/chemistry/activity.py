@@ -302,13 +302,15 @@ ION_SPECIES = {1: "Hp", 2: "NH4p", 19: "HSO4m", 8: "SO42m",
                13: "NO3m", 14: "Clm"}
 
 
-def xgamma_field(te, conc, cm, cw, n2i, nf):
+def xgamma_field(te, conc, cm, cw, n2i, nf, lev=None):
     """Activity-coefficient plane xgamma [B, NGAM, nkc, n] of B columns in
     the reference sion1 numbering (slot i stored at index i-1); slots not
     filled stay 1.  Also returns the water activity [B, nkc, n].
 
     te [B, n]; conc [B, nvar, n]; cm, cw [B, nkc, n] (nkc the full bin
-    count: missing bins mask to gamma = 1); n2i the species index map.
+    count: missing bins mask to gamma = 1); n2i the species index map;
+    lev the level numbers of the n entries (a long tensor; levels 0..n-1
+    by default), for the mask of the levels 1..nf-1.
     """
     B, nkc, n = cm.shape
     cm_s = torch.clamp(cm, min=1e-30)
@@ -340,7 +342,8 @@ def xgamma_field(te, conc, cm, cw, n2i, nf):
     zc = _charges(ZC, tk)
     za = _charges(ZA, tk)
     xip = 0.5 * (torch.sum(mc * zc ** 2, 0) + torch.sum(ma * za ** 2, 0))
-    lev = torch.arange(n, device=te.device)
+    if lev is None:
+        lev = torch.arange(n, device=te.device)
     lev_ok = (lev >= 1) & (lev < nf)
     valid = (cm > 0.0) & (xip > 0.0) & (xip <= 80.0) & lev_ok
 

@@ -59,6 +59,14 @@ MASS_IONS = (("Hp", 1.0), ("NH4p", 18.0), ("SO42m", 96.0),
 # so 8 sub-iterations cover dt = 10 s with a wide margin; iterations
 # beyond the needed split are masked no-ops (the JAX package's bound)
 SEDL_SPLITS = 8
+# cuBLAS sums the dry bins of fewer than ~16k rows (columns x levels) in a
+# split-K SGEMM, whose float32 rounding differs (~1e-7 of a sum) from the
+# kernel it takes for whole columns; over a minute the box's tot solve
+# carries that to 3e-5-8e-5 of a species' scale (H100, 1,024 boxes:
+# 12,288 rows took the split-K kernel, 16,384 did not).  liq_parm repeats
+# a short level set to this many rows, never to more cells than the
+# columns hold, so that each level's sums round as the whole column's
+GEMM_ROWS = 16384
 
 
 def _eq_key(name: str) -> str:
@@ -73,6 +81,12 @@ def _eq_key(name: str) -> str:
     if base2 in aq.EQUILIBRIA:
         return base2
     raise KeyError(f"no equilibrium table entry for {name}")
+
+
+def _first_levels(lp, k):
+    """liq_parm's dict with every tensor cut to its first k levels."""
+    return {key: _first_levels(v, k) if isinstance(v, dict) else v[..., :k]
+            for key, v in lp.items()}
 
 
 def _pair_indices(n2i, b_src, b_dst):
@@ -152,6 +166,12 @@ class MultiphaseDriver(ChemistryDriver):
         self._masks_all = torch.as_tensor(self.masks, dtype=self.dtype,
                                           device=self.device)
         self.last_gas_info = None   # the Ros3 info of the layers above nf
+        # cw_rc's thresholds of the hysteresis flags, per chemistry bin
+        self._cloud_thresh, self._cloud_crys, self._cloud_deli = (
+            torch.tensor(v, dtype=self.dtype, device=self.device)[:, None]
+            for v in ([aq.CWM, aq.CWM, aq.CWMD, aq.CWMD],
+                      [aq.XCRYSSULF, aq.XCRYSSS, 0.0, 0.0],
+                      [aq.XDELISULF, aq.XDELISS, 0.0, 0.0]))
 
     # ------------------------------------------------------------------
     def init_chem_state(self, state) -> MultiphaseChemState:
@@ -216,21 +236,36 @@ class MultiphaseDriver(ChemistryDriver):
         return aq.cw_rc(state.micro.ff, state.met.feu, state.chem.cloud,
                         self._masks, self._rq, self._e, self.model.bins)
 
-    def liq_parm(self, state):
-        """The aqueous support stack of B columns; returns a dict of
-        tensors [B, ..., n].  Its sums over the dry bins take two
-        all_reduce calls over the tp ranks: cw_rc's, then fast_k_mt's
-        (the dry-aerosol rates take cw_rc's LWC and radius)."""
+    def liq_parm(self, state, lev=None):
+        """The aqueous support stack of B columns on the levels ``lev`` (a
+        long tensor of level numbers; every level by default); returns a
+        dict of tensors [B, ..., len(lev)].  No stage couples two levels,
+        so each level's entries are those of the call over every level:
+        every per-level input is taken on lev (repeated to ``GEMM_ROWS``
+        rows) before any arithmetic.  Its sums over the dry bins take two
+        all_reduce calls over the tp ranks: cw_rc's, then fast_k_mt's (the
+        dry-aerosol rates take cw_rc's LWC and radius)."""
         cfg = self.model.cfg
         gp = cfg.grid
         met = state.met
-        ff = state.micro.ff
-        t, p = met.t, met.p
+        ff, t, p, feu = state.micro.ff, met.t, met.p, met.feu
+        conc, cloud = state.chem.conc, state.chem.cloud
+        if lev is None:
+            levels = torch.arange(gp.n, device=t.device)
+        else:
+            k = lev.numel()
+            levels = lev.repeat(max(1, min(-(-GEMM_ROWS // (t.shape[0] * k)),
+                                           gp.n // k)))
+            ff, t, p, feu, conc, cloud = (
+                x[..., levels] for x in (ff, t, p, feu, conc, cloud))
+        count("liq_parm.cells", t.shape[0] * levels.numel())
         freep = 2.28e-5 * t / p
 
-        cw, cm, rc, conv2, cloud = self._cw_rc(state)
+        cw, cm, rc, conv2, cloud = aq.cw_rc(ff, feu, cloud, self._masks,
+                                            self._rq, self._e,
+                                            self.model.bins)
         # aqueous activity only below the chemistry top nf
-        lev_ok = torch.arange(gp.n, device=t.device) < gp.nf
+        lev_ok = levels < gp.nf
         cm = torch.where(lev_ok, cm, 0.0)
         conv2 = torch.where(lev_ok, conv2, 0.0)
 
@@ -244,26 +279,43 @@ class MultiphaseDriver(ChemistryDriver):
         # overflow float32 where a bin's LWC is just above its threshold
         td = self.tot_dtype
         xgamma, _ = xgamma_field(
-            t.to(td), torch.clamp(state.chem.conc, min=0.0).to(td),
-            cm.to(td), cw.to(td), self.tot_n2i, gp.nf)
+            t.to(td), torch.clamp(conc, min=0.0).to(td),
+            cm.to(td), cw.to(td), self.tot_n2i, gp.nf, levels)
         kef, keb = aq.equil_constants(t.to(td), conv2.to(td), xgamma)
         dry = aq.dry_aerosol_rates(ff, t, self._masks, self._rq, freep,
                                    lwc=(cw, rc))
-        return {"cw": cw, "cm": cm, "rc": rc, "conv2": conv2,
-                "cloud": cloud, "xkmt": xkmt, "vt": vt, "kef": kef,
-                "keb": keb, "dry": dry}
+        lp = {"cw": cw, "cm": cm, "rc": rc, "conv2": conv2, "cloud": cloud,
+              "xkmt": xkmt, "vt": vt, "kef": kef, "keb": keb, "dry": dry}
+        return lp if lev is None else _first_levels(lp, lev.numel())
+
+    def _cloud_flags(self, state):
+        """cw_rc's hysteresis flags at every level [B, nkc, n] from one sum
+        over the dry bins (the LWC), as cw_rc sets them: the same sum, the
+        same thresholds, the same rule."""
+        ff, feu = state.micro.ff, state.met.feu
+        vol = 4.0 / 3.0 * PI * self._rq ** 3
+        cw_raw = self.model.bins.sum_bins(aq.bin_sums(ff, vol, self._masks))
+        f = feu[:, None, :]
+        big = cw_raw >= self._cloud_thresh
+        aero = torch.arange(4, device=ff.device)[:, None] < 2
+        wet_ok = torch.where(
+            aero, (state.chem.cloud & (f >= self._cloud_crys))
+            | (f >= self._cloud_deli), True)
+        both_dry = f < min(aq.XCRYSSULF, aq.XCRYSSS)
+        return big & wet_ok & ~(both_dry & aero)
 
     # ------------------------------------------------------------------
-    def _extras(self, lp, lev, y0, te):
-        """Rate-evaluation namespace extras for the cells of layers ``lev``
-        of every column (flattened as y0 [cells, nvar] is; te [cells]).
-        y0 holds the initial concentrations (frozen during the step,
-        matching Update_RCONST semantics)."""
+    def _extras(self, lp, at, y0, te):
+        """Rate-evaluation namespace extras for the cells of lp's levels
+        ``at`` (positions on lp's level axis) of every column (flattened as
+        y0 [cells, nvar] is; te [cells]).  y0 holds the initial
+        concentrations (frozen during the step, matching Update_RCONST
+        semantics)."""
         nkc = self.nkc
 
         def cells(x):
             """[B, k, n] -> [k, cells]; [B, n] -> [cells]."""
-            x = x[..., lev]
+            x = x[..., at]
             if x.dim() == 3:
                 return x.transpose(0, 1).reshape(x.shape[1], -1)
             return x.reshape(-1)
@@ -271,7 +323,7 @@ class MultiphaseDriver(ChemistryDriver):
         conv2 = cells(lp["conv2"])             # [nkc, cells]
         cm = cells(lp["cm"])
         cw = cells(lp["cw"])
-        xkmt = lp["xkmt"][..., lev].permute(1, 2, 0, 3)
+        xkmt = lp["xkmt"][..., at].permute(1, 2, 0, 3)
         xkmt = xkmt.reshape(xkmt.shape[0], xkmt.shape[1], -1)
         kef = {k: cells(v) for k, v in lp["kef"].items()}
         keb = {k: cells(v) for k, v in lp["keb"].items()}
@@ -408,10 +460,14 @@ class MultiphaseDriver(ChemistryDriver):
                           0.0)
         return phj.transpose(1, 2).reshape(-1, phj.shape[1])
 
-    def _tot_env(self, state, lp, lev, y0):
+    def _tot_env(self, state, lp, lev, y0, at=None):
         """Rate constants + fixed-species columns for the tot mechanism at
         the cells of layers ``lev`` (kpp_driver per-layer scalars,
-        kpp.f90:4315-4438)."""
+        kpp.f90:4315-4438).  ``at`` gives the positions of lev on lp's
+        level axis: lev itself (the default) where lp is liq_parm's over
+        every level, ``slice(None)`` where lp is ``liq_parm(state, lev)``
+        (already sliced)."""
+        at = lev if at is None else at
         cfg = self.model.cfg
         met = state.met
         B = met.t.shape[0]
@@ -427,10 +483,10 @@ class MultiphaseDriver(ChemistryDriver):
                       ph_rat=self._photol_cells(state, lev),
                       xhal=1.0 if cfg.halo else 0.0,
                       xiod=1.0 if (cfg.halo and cfg.iod) else 0.0,
-                      extras=self._extras(lp, lev, y0, te))
+                      extras=self._extras(lp, at, y0, te))
 
         # fixed species: O2/N2/H2O gas + aqueous water 55.55/cvv per bin
-        conv2 = lp["conv2"][..., lev]                      # [B, nkc, nlev]
+        conv2 = lp["conv2"][..., at]                       # [B, nkc, nlev]
         fix_cols = {"O2": 0.21 * air, "N2": 0.79 * air, "H2O": h2o}
         for b in range(1, self.nkc + 1):
             cv = conv2[:, b - 1].reshape(-1)
@@ -441,14 +497,15 @@ class MultiphaseDriver(ChemistryDriver):
                           dim=-1)
         return self.tot_kernel.rate_constants(env, fix=fix), fix
 
-    def _integrate_tot(self, state, conc, lp, lev, dt):
+    def _integrate_tot(self, state, conc, lp, lev, dt, at=None):
         """The tot solve of the cells of layers lev (a [nlev] index) of
-        every column; returns (conc, failed cells per column [B])."""
+        every column, lp indexed at ``at`` (``_tot_env``'s); returns
+        (conc, failed cells per column [B])."""
         B, nvar, _ = conc.shape
         nlev = lev.shape[0]
         y0 = conc[..., lev].transpose(1, 2).reshape(-1, nvar) \
             .to(self.tot_dtype)
-        k, fix = self._tot_env(state, lp, lev, y0)
+        k, fix = self._tot_env(state, lp, lev, y0, at)
         with span("ros3_tot"):
             y, info = self.tot_kernel.integrate(
                 y0, k.to(self.tot_dtype), fix.to(self.tot_dtype), dt)
@@ -511,25 +568,29 @@ class MultiphaseDriver(ChemistryDriver):
     def integrate_box(self, state, dt, n_bl=1) -> MultiphaseChemState:
         """Box/chamber mode: the tot mechanism at the single level n_bl of
         every column (reference kpp_driver box branch,
-        kpp.f90:4440-4470)."""
+        kpp.f90:4440-4470), with liq_parm on that level alone; the
+        hysteresis flags of every level are cw_rc's (``_cloud_flags``)."""
         chem = state.chem
         conc = torch.clamp(chem.conc, min=0.0)
+        lev = torch.tensor([n_bl], device=conc.device)
         with span("liq_parm"):
-            lp = self.liq_parm(state)
-        conc, nfail = self._integrate_tot(
-            state, conc, lp, torch.tensor([n_bl], device=conc.device), dt)
-        return chem.replace(conc=conc, cloud=lp["cloud"],
+            lp = self.liq_parm(state, lev)
+            cloud = self._cloud_flags(state)
+        conc, nfail = self._integrate_tot(state, conc, lp, lev, dt,
+                                          at=slice(None))
+        return chem.replace(conc=conc, cloud=cloud,
                             nonconv=chem.nonconv + nfail)
 
     def reaction_rates_at(self, state, levels):
         """Instantaneous per-reaction tot-mechanism rates [B * len(levels),
         nrxn] [mol/(m3 s)] at ``levels`` of every column (budget
-        diagnostics C33; bud_t.f / bud_s_t.f)."""
+        diagnostics C33; bud_t.f / bud_s_t.f), liq_parm on those levels
+        alone."""
         lev = torch.as_tensor(np.asarray(levels), device=state.met.t.device)
         conc = torch.clamp(state.chem.conc, min=0.0)
-        lp = self.liq_parm(state)
+        lp = self.liq_parm(state, lev)
         y0 = conc[..., lev].transpose(1, 2).reshape(-1, self.tot.nvar)
-        k, fix = self._tot_env(state, lp, lev, y0)
+        k, fix = self._tot_env(state, lp, lev, y0, at=slice(None))
         return self.tot_kernel.reaction_rates(y0, k, fix)
 
     # ------------------------------------------------------------------

@@ -1229,7 +1229,7 @@ def phase_chem(mech, reference):
     from mistra_tpu_torch.chemistry import lu_cuda
     kern, k, fix, y = chem_inputs(mech, reference, CHEM_CELLS,
                                   torch.float64, DEVICE)
-    check(kern.solver == "block", f"solver {kern.solver}")
+    check(kern.block.nbin > 0, f"aqueous bins {kern.block.nbin}")
     torch.cuda.synchronize()
     lu_cuda.reset_counts()
     iterations, times, steps = 0, [], []
@@ -1320,7 +1320,8 @@ def phase_lu_chem_t(mechdir):
     out = {}
     for dtype in (torch.float32, torch.float64):
         kern, k, fix, y = chem_inputs(mech, False, cells, dtype, DEVICE)
-        check(kern.solver == "block", f"gas mechanism solver {kern.solver}")
+        check(kern.block.nbin > 0,
+              f"gas mechanism aqueous bins {kern.block.nbin}")
         rng = np.random.default_rng(6)
         ghinv = torch.tensor(10.0 ** rng.uniform(-0.5, 5.0, cells),
                              dtype=dtype, device=DEVICE)
@@ -1538,7 +1539,8 @@ def phase_chem_t(inpdir, mechdir, bott_cuda, lu_cuda):
     init_s = time.perf_counter() - t0
     drv = model._chemistry
     check(type(drv).__name__ == "ChemistryDriver", f"driver {type(drv)}")
-    check(drv.kernel.solver == "block", f"solver {drv.kernel.solver}")
+    check(drv.kernel.block.nbin > 0,
+          f"aqueous bins {drv.kernel.block.nbin}")
     check(model._photolysis is not None, "no photolysis driver")
     noon = torch.arange(B, device=state.rad.u0.device) >= B // 2
 
@@ -1757,9 +1759,10 @@ def phase_multiphase(inpdir, mechdir, growth, bott_cuda, lu_cuda):
     init_s = time.perf_counter() - t0
     drv = model._chemistry
     check(type(drv).__name__ == "MultiphaseDriver", f"driver {type(drv)}")
-    check(drv.tot_kernel.solver == "block"
+    check(drv.tot_kernel.block.nbin > 0
           and drv.tot_kernel.dtype == torch.float64,
-          f"tot solver {drv.tot_kernel.solver} {drv.tot_kernel.dtype}")
+          f"tot aqueous bins {drv.tot_kernel.block.nbin} "
+          f"{drv.tot_kernel.dtype}")
     check(model._photolysis is not None, "no photolysis driver")
     noon = torch.arange(B, device=state.rad.u0.device) >= B // 2
 

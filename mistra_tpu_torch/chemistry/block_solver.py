@@ -1,4 +1,4 @@
-"""Block-arrow stage solver for the multiphase (aer/tot) mechanisms.
+"""Block-arrow stage solver: the one stage solver of every mechanism.
 
 Port of ``mistra_tpu/chemistry/block_solver.py``.  The aqueous bins never
 couple to each other chemically (the cloned master_aqueous.eqn reacts only
@@ -16,6 +16,12 @@ second inverse there, and batched matmul/matvec solves.  The inverses go
 through ``lu.batched_inv`` (the hand-written CUDA kernel for CUDA tensors,
 the plain torch version on the CPU); the products are ``torch.einsum``, as
 the JAX package leaves them to XLA.
+
+An unbinned mechanism (no aqueous bins, nbin = 0) is all gas core: its
+Schur complement is the whole stage matrix, and the aqueous steps are
+skipped.  On a CUDA device the core then goes through the inverse
+kernel, whose shared-memory bound (``lu_cuda.launch_plan``) limits it to
+m <= 168 in float64 and 238 in float32.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ class BlockFactors(NamedTuple):
     """``prepare``'s factorization of R*(ghinv*I - J): the inverses and
     the products the solve needs (first four, in the JAX package's
     order), the row scales, the scaled blocks, and the Schur complement
-    ``s`` whose inverse is ``inv_s``."""
+    ``s`` whose inverse is ``inv_s``.  With no aqueous bins the
+    aqueous fields are None and ``r_aq`` is empty."""
     inv_a: torch.Tensor     # [B, nb, ma, ma]
     gmat: torch.Tensor      # [B, nb, mg, ma]  Agb_f inv(A_f)
     hmat: torch.Tensor      # [B, nb, ma, mg]  inv(A_f) Abg_f
@@ -48,7 +55,7 @@ class BlockFactors(NamedTuple):
 
 
 class BlockArrowSolver:
-    """Stage-matrix solver  (ghinv*I - J) x = b  for binned mechanisms.
+    """Stage-matrix solver  (ghinv*I - J) x = b.
 
     Implements the rosenbrock.py linop protocol (prepare/solve); the
     Jacobian context is the tuple of dense block arrays from ``assemble``.
@@ -58,13 +65,15 @@ class BlockArrowSolver:
         self.mech = mech
         self.dtype = dtype
         self.device = resolve_device(device)
-        blk = np.asarray(mech.species_bin[:mech.nvar])
+        sb = mech.species_bin
+        blk = (np.zeros(mech.nvar, np.int64) if sb is None
+               else np.asarray(sb[:mech.nvar]))
         bins = sorted(b for b in set(blk.tolist()) if b != 0)
         self.nbin = len(bins)
         self.nvar = mech.nvar
         bin_idx = [np.nonzero(blk == b)[0] for b in bins]
         gas_idx = np.nonzero(blk == 0)[0]
-        self.ma = max(len(ix) for ix in bin_idx)     # padded bin width
+        self.ma = max((len(ix) for ix in bin_idx), default=0)  # padded
         self.mg = len(gas_idx)
         nb, ma, mg = self.nbin, self.ma, self.mg
 
@@ -202,6 +211,14 @@ class BlockArrowSolver:
         jbb, jgb, jbg, jgg = jac_ctx
         B = jbb.shape[0]
         nb, ma, mg = self.nbin, self.ma, self.mg
+        if not nb:
+            # all gas core: the Schur complement is the stage matrix
+            agg = ghinv[:, None, None] * self._gg_eye[None] - jgg
+            r_g = self._row_scale(agg.abs().amax(dim=-1))
+            s = agg * r_g[..., None]
+            return BlockFactors(None, None, None, batched_inv(s),
+                                s.new_empty((B, 0, 0)), r_g,
+                                None, None, None, s, s)
         g = ghinv[:, None, None, None]
         abb = (g * self._bb_eye[None] + self._bb_pad[None]) - jbb
         agb = -jgb
@@ -230,6 +247,8 @@ class BlockArrowSolver:
 
     def _apply_scaled(self, fact, xb, xg):
         """y = A' x for the row-scaled system (block matvecs)."""
+        if not self.nbin:
+            return xb, torch.einsum("bij,bj->bi", fact.agg, xg)
         yb = (torch.einsum("bfij,bfj->bfi", fact.abb, xb)
               + torch.einsum("bfij,bj->bfi", fact.abg, xg))
         yg = (torch.einsum("bij,bj->bi", fact.agg, xg)
@@ -237,6 +256,8 @@ class BlockArrowSolver:
         return yb, yg
 
     def _solve_scaled(self, fact, rb, rg):
+        if not self.nbin:
+            return rb, torch.einsum("bij,bj->bi", fact.inv_s, rg)
         tb = torch.einsum("bfij,bfj->bfi", fact.inv_a, rb)
         yg = rg - torch.einsum("bfij,bfj->bi", fact.gmat, rb)
         xg = torch.einsum("bij,bj->bi", fact.inv_s, yg)

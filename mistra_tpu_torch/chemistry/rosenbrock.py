@@ -5,10 +5,9 @@ Port of ``mistra_tpu/chemistry/rosenbrock.py`` (KPP's
 gas.f:1474-1513; tolerances RTOL=1e-3, ATOL=1e-25, Hstart=1e-3 from
 gas.f:739-747).
 
-* The stage-matrix factorization/solve is pluggable (``linop``): a dense
-  batched LU, the static sparse LU (sparse_lu.py), or the block-arrow
-  solver (block_solver.py) whose batched inverse is the hand-written
-  CUDA kernel on a GPU.
+* The stage-matrix factorization/solve is the ``linop`` argument; the
+  program's one is the block-arrow solver (block_solver.py), whose
+  batched inverse is the hand-written CUDA kernel on a GPU.
 * The per-cell adaptive stepping is the JAX package's masked
   ``while_loop`` as a Python loop: all cells advance together, finished
   or rejected cells mask their updates, and the host asks ``done.all()``
@@ -63,57 +62,6 @@ class RosOptions:
         if torch.finfo(dtype).eps > 1e-10 and self.atol < 1e-18:
             return replace(self, atol=1.0e-16)
         return self
-
-
-class DenseLinOp:
-    """Stage solves via batched dense LU with partial pivoting."""
-
-    def __init__(self, jac_fn, nvar, dtype, device):
-        self._jac = jac_fn
-        self._eye = torch.eye(nvar, dtype=dtype, device=device)
-
-    def jac(self, y):
-        return self._jac(y)
-
-    def prepare(self, jac0, ghinv):
-        a = ghinv[:, None, None] * self._eye[None] - jac0
-        return torch.linalg.lu_factor(a)
-
-    def solve(self, fact, rhs):
-        lu, piv = fact
-        return torch.linalg.lu_solve(lu, piv, rhs[..., None])[..., 0]
-
-
-class SparseLinOp:
-    """Stage solves via the static-structure sparse LU (the
-    KppDecomp/KppSolve design, gas.f:6142-6177)."""
-
-    def __init__(self, jac_fn, slu, nvar, device):
-        self._jac = jac_fn
-        self._slu = slu
-        perm = [int(p) for p in slu.perm]
-        inv = [0] * nvar
-        for newi, old in enumerate(perm):
-            inv[old] = newi
-        self._perm = perm
-        self._inv_idx = torch.as_tensor(inv, device=device)
-        self._diag_slots = [slu.slots[(i, i)] for i in range(nvar)]
-        self._nvar = nvar
-
-    def jac(self, y):
-        return self._jac(y)
-
-    def prepare(self, jac0, ghinv):
-        a = [-v for v in jac0]
-        for i in range(self._nvar):
-            ds = self._diag_slots[i]
-            a[ds] = a[ds] + ghinv
-        return self._slu.decompose(a)
-
-    def solve(self, fact, rhs):
-        b = [rhs[:, p] for p in self._perm]
-        x = self._slu.solve(fact, b)
-        return torch.stack(x, dim=-1)[:, self._inv_idx]
 
 
 def integrate(fun, linop, y0, tend, opts: RosOptions = RosOptions()):

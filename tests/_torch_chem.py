@@ -1,5 +1,6 @@
 """Shared inputs of the port's chemistry tests: a per-cell environment
-made with numpy from a seed, as JAX and as torch rate environments."""
+made with numpy from a seed, as JAX and as torch rate environments, and
+the dense Jacobian the tests hold the stage solver to."""
 
 from __future__ import annotations
 
@@ -35,3 +36,19 @@ def jax_env(env, **kw):
 def torch_env(env, **kw):
     return trates.RateEnv(**{k: torch.tensor(v) for k, v in env.items()},
                           **kw)
+
+
+def dense_jacobian(mech, kwcat):
+    """Dense Jacobian [B, nvar, nvar] from the per-slot weights kwcat
+    [B, 3*nrxn] of ``GasKernel.kw_weights``: J[b, s, m] is the sum over
+    the reactions j and slots l with ridx[j, l] = m of stoich[j, s] *
+    kw_l[b, j] (fixed species and empty slots add nothing)."""
+    nrxn, nvar = mech.stoich.shape
+    kw = kwcat.reshape(kwcat.shape[0], -1, nrxn)
+    st = torch.as_tensor(mech.stoich, dtype=kwcat.dtype)
+    jac = kwcat.new_zeros((kwcat.shape[0], nvar, nvar))
+    for l, col in enumerate(np.asarray(mech.ridx).T):
+        j = np.nonzero(col < nvar)[0]
+        jac.index_add_(2, torch.as_tensor(col[j], dtype=torch.long),
+                       torch.einsum("js,bj->bsj", st[j], kw[:, l, j]))
+    return jac

@@ -2,10 +2,13 @@
 
 On the CPU, in float64 unless stated: ``assemble``/``prepare``/``solve``
 and the whole Ros3 integration with the block solver against the JAX
-package on a small synthetic stand-in mechanism; ``batched_inv_plain``
-against the JAX package's inverses; the router.  On a CUDA device: the
-hand-written kernel (csrc/lu.cu) against the plain version, bit for bit,
-and its launch plan (which the CPU tests check in Python).
+package on a small synthetic stand-in mechanism; the stage solve of the
+binned stand-in and of its unbinned gas mechanism (nbin = 0, all gas
+core) against the dense Jacobian; ``batched_inv_plain`` against the JAX
+package's inverses; the router.  On a CUDA device: the hand-written
+kernel (csrc/lu.cu) against the plain version, bit for bit, its launch
+plan (which the CPU tests check in Python), and the unbinned Ros3
+integration against the CPU.
 
 The CUDA tests run on a GPU host without JAX and without the suite's
 conftest (which configures JAX):
@@ -22,8 +25,9 @@ import torch
 from mistra_tpu_torch.chemistry import gas_kernel as tgk
 from mistra_tpu_torch.chemistry import lu, lu_cuda
 from mistra_tpu_torch.chemistry import mech as tmech
+from mistra_tpu_torch.chemistry import rates as trates
 
-from _torch_chem import environment, jax_env, torch_env
+from _torch_chem import dense_jacobian, environment, jax_env, torch_env
 
 N_GAS, N_AQ, BINS = 16, 10, (1, 2)
 # kernel against plain on the card: the same operations in the same order
@@ -38,18 +42,31 @@ def jnp():
 
 
 @pytest.fixture(scope="module")
-def kernels(jnp, tmp_path_factory):
+def mechdir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("mech_block"))
+    tmech.write_synthetic_multiphase_mechanism(d, N_GAS, N_AQ, seed=0)
+    return d
+
+
+def stand_in(mechdir, binned):
+    """The small stand-in's multiphase mechanism (bins BINS) or its gas
+    mechanism, which has no gas.eqn and so no binned species."""
+    if binned:
+        return tmech.load_multiphase_mechanism(mechdir, bins=BINS)
+    return tmech.load_gas_mechanism(mechdir)
+
+
+@pytest.fixture(scope="module")
+def kernels(jnp, mechdir):
     """(JAX GasKernel, port GasKernel, mechanism) of the small stand-in,
     block solver, float64."""
     from mistra_tpu.chemistry.gas_kernel import GasKernel
     from mistra_tpu.chemistry.mech import load_multiphase_mechanism
-    d = str(tmp_path_factory.mktemp("mech_block"))
-    tmech.write_synthetic_multiphase_mechanism(d, N_GAS, N_AQ, seed=0)
-    mt = tmech.load_multiphase_mechanism(d, bins=BINS)
-    kj = GasKernel(load_multiphase_mechanism(d, bins=BINS),
+    mt = stand_in(mechdir, binned=True)
+    kj = GasKernel(load_multiphase_mechanism(mechdir, bins=BINS),
                    dtype=jnp.float64)
     kt = tgk.GasKernel(mt, dtype=torch.float64, device="cpu")
-    assert kj.solver == kt.solver == "block"
+    assert kj.solver == "block" and kt.block.nbin == len(BINS)
     return kj, kt, mt
 
 
@@ -106,20 +123,44 @@ def test_prepare_matches_jax(jnp, kernels):
         assert bool((m == 0.5).all())
 
 
-def test_block_solve_residual(kernels):
+def stage_solve(kern, mech, seed):
+    """(x, the dense stage matrix ghinv I - J, rhs) of a block solve of
+    three cells at ghinv = 7.3."""
+    y, k, fix, _ = block_state(mech, 3, seed)
+    kw = kern.kw_weights(*(torch.tensor(a) for a in (y, k, fix)))
+    ghinv = torch.full((3,), 7.3, dtype=torch.float64)
+    rhs = torch.tensor(np.random.default_rng(seed + 1).random(
+        (3, mech.nvar)))
+    x = kern.block.solve(kern.block.prepare(kern.block.assemble(kw), ghinv),
+                         rhs)
+    a = ghinv[:, None, None] * torch.eye(mech.nvar, dtype=torch.float64) \
+        - dense_jacobian(mech, kw)
+    return x, a, rhs
+
+
+@pytest.mark.parametrize("binned", [True, False])
+def test_block_solve_residual(mechdir, binned):
     """(ghinv I - J) x = b solved by the block factorization; the residual
     is checked with the dense Jacobian."""
-    _, kt, mt = kernels
-    y, k, fix, _ = block_state(mt, 3, 3)
-    y, k, fix = (torch.tensor(a) for a in (y, k, fix))
-    ghinv = torch.full((3,), 7.3, dtype=torch.float64)
-    rhs = torch.tensor(np.random.default_rng(4).random((3, mt.nvar)))
-    fact = kt.block.prepare(kt.block.assemble(kt.kw_weights(y, k, fix)),
-                            ghinv)
-    x = kt.block.solve(fact, rhs)
-    jx = torch.einsum("bij,bj->bi", kt.jac(y, k, fix), x)
-    r = ghinv[:, None] * x - jx - rhs
+    mt = stand_in(mechdir, binned)
+    kt = tgk.GasKernel(mt, dtype=torch.float64, device="cpu")
+    x, a, rhs = stage_solve(kt, mt, 3)
+    r = torch.einsum("bij,bj->bi", a, x) - rhs
     assert r.abs().max().item() < 1e-10
+
+
+def test_unbinned_mechanism_takes_the_block_solver(mechdir):
+    """A mechanism with no binned species is all gas core (nbin = 0): the
+    kernel builds the block solver, whose stage solve matches
+    torch.linalg.solve on the dense stage matrix."""
+    mt = stand_in(mechdir, binned=False)
+    assert not np.any(mt.species_bin)
+    kt = tgk.GasKernel(mt, dtype=torch.float64, device="cpu")
+    b = kt.block
+    assert (b.nbin, b.ma, b.mg, b.npad) == (0, 0, mt.nvar, mt.nvar)
+    x, a, rhs = stage_solve(kt, mt, 5)
+    want = torch.linalg.solve(a, rhs)
+    assert rel_err(x.numpy(), want.numpy()) <= 1e-12
 
 
 def test_integrate_block_matches_jax(jnp, kernels):
@@ -339,6 +380,33 @@ def test_kernel_plan_matches_python_on_card(cuda, m):
         got = lu_cuda.kernel_plan(m, dtype)
         assert got["plan"] == lu_cuda.launch_plan(m, dtype)
         assert got["blocks_per_sm"] >= (2 if m <= 80 else 1)
+
+
+@pytest.mark.gpu
+def test_unbinned_integrate_on_card(cuda, tmp_path):
+    """The unbinned stand-in's Ros3 integration, its gas core inverted by
+    the kernel once per iteration, against the same integration on the
+    CPU."""
+    tmech.write_synthetic_multiphase_mechanism(tmp_path, N_GAS, N_AQ, seed=0)
+    mt = stand_in(str(tmp_path), binned=False)
+    env, fix = environment(3, 4, mt.fixed)
+    y0 = 1e-8 * np.random.default_rng(5).lognormal(0.0, 1.0, (3, mt.nvar))
+    out = {}
+    lu_cuda.reset_counts()
+    for dev in ("cpu", cuda):
+        kt = tgk.GasKernel(mt, dtype=torch.float64, device=dev)
+        assert kt.block.nbin == 0
+        e = trates.RateEnv(**{k: torch.tensor(v, device=dev)
+                              for k, v in env.items()})
+        f = torch.tensor(fix, device=dev)
+        y, info = kt.integrate(torch.tensor(y0, device=dev),
+                               kt.rate_constants(e, fix=f), f, 5.0)
+        assert int(info["n_failed"]) == 0
+        out[str(dev)] = y.cpu().numpy(), info["nsteps"].cpu().numpy()
+    (yc, nc), (yk, nk) = out["cpu"], out["cuda"]
+    assert lu_cuda.batched_inv.launches == nk.max()
+    np.testing.assert_allclose(yk, yc, rtol=1e-8, atol=1e-22)
+    assert np.array_equal(nk, nc)
 
 
 @pytest.mark.gpu

@@ -66,7 +66,7 @@ def test_chem_init_matches_jax(models):
     ts = tm.init_state(B)
     assert_state_close(to_numpy(js), ts, TOL)
     assert type(tm._chemistry).__name__ == "ChemistryDriver"
-    assert tm._chemistry.kernel.solver == "block"
+    assert tm._chemistry.kernel.block.nbin == 2
     assert tm._photolysis is not None
 
 

@@ -1,8 +1,9 @@
 """Chemistry of the PyTorch port against the JAX package, float64 on the
 CPU: the mechanism parser and the synthetic stand-in mechanism, the rate
-laws, fun/jac and the Jacobian weights, and the Ros3 integrator with the
-dense and sparse stage solvers (the block-arrow solver is in
-test_torch_block_solver.py).
+laws, fun, the Jacobian and its weights, and the Ros3 integrator with the
+port's one stage solver, the block-arrow solver, against the JAX
+package's dense solver (binned) and sparse solver (unbinned); the solver
+itself is in test_torch_block_solver.py.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 JAX is imported only inside the tests that compare with it.
@@ -20,7 +21,7 @@ from mistra_tpu_torch.chemistry import rates as trates
 from mistra_tpu_torch.chemistry import rosenbrock as tros
 from mistra_tpu_torch.chemistry.block_solver import BlockArrowSolver
 
-from _torch_chem import environment, jax_env, torch_env
+from _torch_chem import dense_jacobian, environment, jax_env, torch_env
 
 # small stand-in: 16 gas species, bins (1, 2) of 10 aqueous species
 N_GAS, N_AQ, BINS = 16, 10, (1, 2)
@@ -75,10 +76,11 @@ def test_default_stand_in_has_the_tot_block_shape(tmp_path):
     assert np.array_equal(np.bincount(mech.species_bin), [101, 80, 80, 80,
                                                           80])
     # block-arrow: no reaction couples two bins (the solver raises if one
-    # does), and the kernel picks the block solver
+    # does), and the kernel builds it
     solver = BlockArrowSolver(mech, dtype=torch.float64, device="cpu")
     assert (solver.nbin, solver.ma, solver.mg) == (4, 80, 101)
-    assert tgk.GasKernel(mech, device="cpu").solver == "block"
+    block = tgk.GasKernel(mech, device="cpu").block
+    assert (block.nbin, block.ma, block.mg) == (4, 80, 101)
     # only constants, farr and farr2; the text says what it is
     for rx in mech.reactions:
         assert rx.rate_expr.split("(")[0] in ("farr", "farr2") or \
@@ -214,8 +216,7 @@ def test_fun_jac_weights_match_jax(jchem, small_pair):
     y, k, fix = random_state(mt, 5, 2)
     kj = jchem["gas_kernel"].GasKernel(mj, dtype=jnp.float64,
                                        solver="dense")
-    kt = tgk.GasKernel(mt, dtype=torch.float64, solver="dense",
-                          device="cpu")
+    kt = tgk.GasKernel(mt, dtype=torch.float64, device="cpu")
     ja = [jnp.asarray(a) for a in (y, k, fix)]
     ta = [torch.tensor(a) for a in (y, k, fix)]
     # fun: relative to the sum of the magnitudes of its terms
@@ -225,46 +226,31 @@ def test_fun_jac_weights_match_jax(jchem, small_pair):
     assert (np.abs(kt.fun(*ta).numpy() - np.asarray(kj.fun(*ja)))
             <= 1e-12 * scale).all()
     # jac, kw_weights: relative to their largest entry per cell
-    for name in ("jac", "kw_weights"):
+    kw = kt.kw_weights(*ta)
+    for name, got in (("jac", dense_jacobian(mt, kw)), ("kw_weights", kw)):
         want = np.asarray(getattr(kj, name)(*ja))
-        got = getattr(kt, name)(*ta).numpy()
         amax = np.abs(want).reshape(5, -1).max(axis=1)
-        err = np.abs(got - want).reshape(5, -1).max(axis=1)
+        err = np.abs(got.numpy() - want).reshape(5, -1).max(axis=1)
         assert (err <= 1e-12 * amax).all(), name
-
-
-def test_jac_slot_values_match_jax(jchem, mechdir):
-    jnp = jchem["jnp"]
-    mj = jchem["mech"].load_gas_mechanism(mechdir)
-    mt = tmech.load_gas_mechanism(mechdir)
-    kj = jchem["gas_kernel"].GasKernel(mj, dtype=jnp.float64)
-    kt = tgk.GasKernel(mt, dtype=torch.float64, device="cpu")
-    assert kj.solver == kt.solver == "sparse"
-    assert kt.slu.entries == kj.slu.entries
-    y, k, fix = random_state(mt, 4, 3)
-    want = np.stack([np.asarray(v) * np.ones(4) for v in kj.jac_slot_values(
-        *(jnp.asarray(a) for a in (y, k, fix)))])
-    got = torch.stack(kt.jac_slot_values(
-        *(torch.tensor(a) for a in (y, k, fix)))).numpy()
-    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
 # --------------------------------------------------------------------------
 # Ros3
 # --------------------------------------------------------------------------
 
-def integrate_both(jchem, mj, mt, solver, B=4, seed=1, dt=10.0):
-    """Integrate the same cells with both packages; returns y and nsteps
-    of each."""
+def integrate_both(jchem, mj, mt, jax_solver, B=4, seed=1, dt=10.0):
+    """Integrate the same cells with both packages, the JAX package with
+    its ``jax_solver`` and the port with its block-arrow solver; returns
+    y and nsteps of each."""
     jnp = jchem["jnp"]
     env, fix = environment(B, seed, mt.fixed)
     y0 = 1e-8 * np.random.default_rng(seed + 1).lognormal(0.0, 1.0,
                                                            (B, mt.nvar))
-    kj = jchem["gas_kernel"].GasKernel(mj, dtype=jnp.float64, solver=solver)
+    kj = jchem["gas_kernel"].GasKernel(mj, dtype=jnp.float64,
+                                       solver=jax_solver)
     kkj = kj.rate_constants(jax_env(env), fix=jnp.asarray(fix))
     yj, ij = kj.integrate(jnp.asarray(y0), kkj, jnp.asarray(fix), dt)
-    kt = tgk.GasKernel(mt, dtype=torch.float64, solver=solver,
-                      device="cpu")
+    kt = tgk.GasKernel(mt, dtype=torch.float64, device="cpu")
     kkt = kt.rate_constants(torch_env(env), fix=torch.tensor(fix))
     yt, it = kt.integrate(torch.tensor(y0), kkt, torch.tensor(fix), dt)
     assert set(it) == set(ij)
@@ -275,6 +261,8 @@ def integrate_both(jchem, mj, mt, solver, B=4, seed=1, dt=10.0):
 
 
 def test_integrate_dense_matches_jax(jchem, small_pair):
+    """The binned stand-in: the port's block solver against the JAX
+    package's dense LU."""
     mj, mt = small_pair
     yj, nj, yt, nt = integrate_both(jchem, mj, mt, "dense")
     np.testing.assert_allclose(yt, yj, rtol=1e-8, atol=1e-22)
@@ -282,9 +270,12 @@ def test_integrate_dense_matches_jax(jchem, small_pair):
     assert nt.min() >= 30
 
 
-def test_integrate_sparse_matches_jax(jchem, mechdir):
+def test_integrate_unbinned_block_matches_jax_sparse(jchem, mechdir):
+    """An unbinned mechanism (master_gas.eqn alone): the port's block
+    solver, all gas core, against the JAX package's sparse LU."""
     mj = jchem["mech"].load_gas_mechanism(mechdir)
     mt = tmech.load_gas_mechanism(mechdir)
+    assert tgk.GasKernel(mt, device="cpu").block.nbin == 0
     yj, nj, yt, nt = integrate_both(jchem, mj, mt, "sparse", B=3, seed=4,
                                     dt=5.0)
     np.testing.assert_allclose(yt, yj, rtol=1e-8, atol=1e-22)

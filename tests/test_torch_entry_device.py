@@ -103,7 +103,7 @@ def test_multiphase_model_builds_its_drivers_on_its_device(tmp_path):
     drv = m._chemistry
     assert type(drv).__name__ == "MultiphaseDriver"
     tot, gas = drv.tot_kernel, drv.kernel
-    assert tot.dtype == torch.float64 and tot.solver == "block"
+    assert tot.dtype == torch.float64 and tot.block.nbin == 4
     assert tot.device == tot.block.device == gas.device == m.device
     assert tot.stoich.device == drv.conc_es.device == m.device
     assert state.chem.conc.device == state.chem.cloud.device == m.device

@@ -61,7 +61,7 @@ def test_multiphase_init_matches_jax(models):
     assert_state_close(to_numpy(js), ts, TOL)
     drv = tm._chemistry
     assert type(drv).__name__ == "MultiphaseDriver"
-    assert drv.tot_kernel.solver == "block"
+    assert drv.tot_kernel.block.nbin == 4
     assert drv.tot_kernel.dtype == torch.float64
     assert drv.tot.nvar == ts.chem.conc.shape[1] == jm._chemistry.tot.nvar
     # the sea-salt ions are loaded into bin 2

@@ -1226,12 +1226,13 @@ def phase_chem(mech, reference):
     ones, each from the last (clamped at 0, as benchmarks/bench_chem.py);
     then one more under torch.profiler; returns the inverse kernel's
     launches, the Ros3 loop iterations and the path's figures."""
-    from mistra_tpu_torch.chemistry import lu_cuda
+    from mistra_tpu_torch.chemistry import lu_cuda, rosenbrock
     kern, k, fix, y = chem_inputs(mech, reference, CHEM_CELLS,
                                   torch.float64, DEVICE)
     check(kern.block.nbin > 0, f"aqueous bins {kern.block.nbin}")
     torch.cuda.synchronize()
     lu_cuda.reset_counts()
+    rosenbrock.reset_counts()
     iterations, times, steps = 0, [], []
     for _ in range(1 + CHEM_TIMED):
         t0 = time.perf_counter()
@@ -1255,6 +1256,8 @@ def phase_chem(mech, reference):
     # two inverses per Ros3 step attempt, and nothing else calls the kernel
     check(launches == 2 * iterations,
           f"batched_inv launches {launches} != 2 x {iterations} iterations")
+    check_graph_iterations("chemistry path", ros3_counts(), iterations,
+                           captures=1)
     timed = times[1:]
     rate = CHEM_CELLS * len(timed) / sum(timed)
     log(f"chemistry path: {CHEM_CELLS} cells, float64, nvar {mech.nvar}, "
@@ -1432,10 +1435,12 @@ def run_minutes(step, state, minutes, kernels, bott_cuda, lu_cuda,
     recorded; after_minute(minute, state) runs after each minute, outside
     the timing.  Returns (state, minute times in s, launch counts, one
     ``ros3_summary`` per kernel)."""
+    from mistra_tpu_torch.chemistry import rosenbrock
     times = []
     with ros3_solves(*kernels) as solves, sed_calls() as seen:
         bott_cuda.reset_counts()
         lu_cuda.reset_counts()
+        rosenbrock.reset_counts()
         for minute in range(minutes):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1447,8 +1452,30 @@ def run_minutes(step, state, minutes, kernels, bott_cuda, lu_cuda,
         counts = {"bott_dwsum": bott_cuda.bott_dwsum.launches,
                   "bott_advect": bott_cuda.bott_advect.launches,
                   "batched_inv": lu_cuda.batched_inv.launches,
-                  **sed_counts(seen, "minute run")}
+                  **sed_counts(seen, "minute run"), **ros3_counts()}
     return state, times, counts, [ros3_summary(c) for c in solves]
+
+
+def ros3_counts():
+    """The Ros3 loop's counters since their reset: its iterations, those
+    replayed from CUDA graphs and the graph sets captured."""
+    from mistra_tpu_torch.chemistry import rosenbrock
+    return {"ros3_iters": rosenbrock.COUNTS["ros3.iters"],
+            "ros3_graph_iters": rosenbrock.COUNTS["ros3.graph_iters"],
+            "ros3_graph_captures": rosenbrock.COUNTS["ros3.graph_captures"]}
+
+
+def check_graph_iterations(what, counts, iterations, captures=None):
+    """Every Ros3 iteration counted, and each replayed from CUDA graphs
+    but the one that runs op by op before each capture (captures, if
+    given, the sets expected)."""
+    got = counts["ros3_graph_captures"]
+    check(counts["ros3_iters"] == iterations
+          and counts["ros3_graph_iters"] == iterations - got
+          and (captures is None or got == captures),
+          f"{what}: {iterations} Ros3 iterations; counted "
+          f"{counts['ros3_iters']}, {counts['ros3_graph_iters']} replayed "
+          f"from graphs after {got} captures")
 
 
 def loop_iterations(solves):
@@ -1485,7 +1512,8 @@ def profile_minute(what, step, state, fig):
 
 def check_launches(what, counts, iterations, bott, minutes=MODE_MINUTES,
                    sedl=False):
-    """The inverse launched twice per Ros3 iteration; both Bott kernels
+    """The inverse launched twice per Ros3 iteration, every iteration
+    after a capture replayed from CUDA graphs; both Bott kernels
     launched (dwsum at least once, advect once per substep) and the
     sedimentation kernel at least once per substep (sedp's passes) in
     minutes minutes of a path with the particle physics (bott), none of
@@ -1496,6 +1524,7 @@ def check_launches(what, counts, iterations, bott, minutes=MODE_MINUTES,
     check(counts["batched_inv"] == 2 * iterations,
           f"{what}: batched_inv launches {counts['batched_inv']} != 2 x "
           f"{iterations} Ros3 iterations")
+    check_graph_iterations(what, counts, iterations)
     if bott:
         check(counts["bott_dwsum"] >= 6 * minutes
               and counts["bott_advect"] == 6 * minutes
@@ -1727,9 +1756,9 @@ def capture_inverse_inputs(solve):
     seen = {}
     inverse = block_solver.batched_inv
 
-    def keep(a):
+    def keep(a, out=None):
         seen.setdefault((a.dtype, a.shape[-1]), a.clone())
-        return inverse(a)
+        return inverse(a, out=out)
 
     block_solver.batched_inv = keep
     try:
@@ -2371,6 +2400,8 @@ def phase_cli(inpdir, totdir):
             check(res["a"]["launches"][k] > 0, f"(a): {k} not launched")
         check(res["a"]["launches"]["sed_splits"] == 0,
               "(a): sedl's kernel launched without chemistry")
+        check(not any(res["a"]["ros3"].values()),
+              f"(a): Ros3 counts {res['a']['ros3']} without chemistry")
         # (b) 2 minutes from (a)'s 12:00 checkpoint
         _, res["b"] = run_cli("(b) restart 2 minutes", [
             "--namelist", nml, "--outdir", str(d / "b"), "--restart",
@@ -2408,6 +2439,12 @@ def phase_cli(inpdir, totdir):
         for k in ("bott_dwsum", "bott_advect", "batched_inv", "sed_advect",
                   "sed_splits"):
             check(res["c"]["launches"][k] > 0, f"(c): {k} not launched")
+        # the tot and the gas-above solves, each captured once
+        ros3 = res["c"]["ros3"]
+        check(ros3["ros3.iters"] > 0 and ros3["ros3.graph_captures"] == 2
+              and ros3["ros3.graph_iters"] == ros3["ros3.iters"] - 2
+              and res["c"]["launches"]["batched_inv"]
+              == 2 * ros3["ros3.iters"], f"(c): Ros3 counts {ros3}")
         # (d) --profile: minutes 2-4 traced
         _, res["d"] = run_cli("(d) profile 4 minutes", [
             "--namelist", nml, "--outdir", str(d / "d"), "--restart", start,

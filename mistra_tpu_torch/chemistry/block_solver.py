@@ -15,7 +15,9 @@ The stage solve is dense-block algebra: one batched inverse over all
 second inverse there, and batched matmul/matvec solves.  The inverses go
 through ``lu.batched_inv`` (the hand-written CUDA kernel for CUDA tensors,
 the plain torch version on the CPU); the products are ``torch.einsum``, as
-the JAX package leaves them to XLA.
+the JAX package leaves them to XLA.  ``prepare`` runs as ``phases()``
+split at its two inverses, so that the Ros3 loop can replay the work
+between them from CUDA graphs and launch each inverse itself.
 
 An unbinned mechanism (no aqueous bins, nbin = 0) is all gas core: its
 Schur complement is the whole stage matrix, and the aqueous steps are
@@ -57,8 +59,9 @@ class BlockFactors(NamedTuple):
 class BlockArrowSolver:
     """Stage-matrix solver  (ghinv*I - J) x = b.
 
-    Implements the rosenbrock.py linop protocol (prepare/solve); the
-    Jacobian context is the tuple of dense block arrays from ``assemble``.
+    Implements the rosenbrock.py linop protocol (prepare/solve, and
+    phases/invert for ``GraphedLoop``); the Jacobian context is the tuple
+    of dense block arrays from ``assemble``.
     """
 
     def __init__(self, mech, dtype=torch.float32, device="cuda"):
@@ -207,7 +210,35 @@ class BlockArrowSolver:
         kpp.f90:2954-3369), so raw stage-matrix entries hit ~1e18 and
         their elimination products overflow float32.  Scaling rows to
         O(1) changes no solution.
+
+        The work is ``phases()`` in sequence, each inverse between two.
         """
+        first, *rest = self.phases()
+        part, a = first(jac_ctx, ghinv)
+        for phase in rest:
+            part, a = phase(part, batched_inv(a))
+        return part
+
+    def phases(self):
+        """``prepare`` split at its inverses: ``prepare_blocks``, then
+        ``prepare_schur`` with bins, then ``prepare_factors``.  The first
+        takes (jac_ctx, ghinv), each later one (part, the inverse of the
+        matrices the one before returned); each returns (part, the
+        contiguous [N, m, m] to invert next), the last (BlockFactors,
+        None)."""
+        if self.nbin:
+            return (self.prepare_blocks, self.prepare_schur,
+                    self.prepare_factors)
+        return self.prepare_blocks, self.prepare_factors
+
+    def invert(self, a, out=None):
+        """inv(a) of a phase's matrices, into out if given."""
+        return batched_inv(a, out=out)
+
+    def prepare_blocks(self, jac_ctx, ghinv):
+        """The shifted, row-scaled blocks; returns them and the aqueous
+        blocks [B*nb, ma, ma] to invert (with no bins, the gas core,
+        which is then the Schur complement)."""
         jbb, jgb, jbg, jgg = jac_ctx
         B = jbb.shape[0]
         nb, ma, mg = self.nbin, self.ma, self.mg
@@ -216,9 +247,7 @@ class BlockArrowSolver:
             agg = ghinv[:, None, None] * self._gg_eye[None] - jgg
             r_g = self._row_scale(agg.abs().amax(dim=-1))
             s = agg * r_g[..., None]
-            return BlockFactors(None, None, None, batched_inv(s),
-                                s.new_empty((B, 0, 0)), r_g,
-                                None, None, None, s, s)
+            return {"r_g": r_g, "s": s}, s
         g = ghinv[:, None, None, None]
         abb = (g * self._bb_eye[None] + self._bb_pad[None]) - jbb
         agb = -jgb
@@ -234,16 +263,32 @@ class BlockArrowSolver:
         abg = abg * r_aq[..., None]
         agb = agb * r_g[:, None, :, None]
         agg = agg * r_g[..., None]
+        part = {"r_aq": r_aq, "r_g": r_g, "abb": abb, "agb": agb,
+                "abg": abg, "agg": agg}
+        return part, abb.reshape(B * nb, ma, ma)
 
-        inv_a = batched_inv(abb.reshape(B * nb, ma, ma)).reshape(
-            B, nb, ma, ma)
-        # G_f = Agb_f inv(A_f);  Schur S = Agg - sum_f G_f Abg_f
-        gmat = torch.einsum("bfij,bfjk->bfik", agb, inv_a)
-        s = agg - torch.einsum("bfij,bfjk->bik", gmat, abg)
-        inv_s = batched_inv(s.contiguous())
-        hmat = torch.einsum("bfij,bfjk->bfik", inv_a, abg)
-        return BlockFactors(inv_a, gmat, hmat, inv_s, r_aq, r_g,
-                            abb, agb, abg, agg, s)
+    def prepare_schur(self, part, inv_a):
+        """G_f = Agb_f inv(A_f) and the Schur complement S = Agg - sum_f
+        G_f Abg_f, to invert next."""
+        abb = part["abb"]
+        inv_a = inv_a.reshape(abb.shape)
+        gmat = torch.einsum("bfij,bfjk->bfik", part["agb"], inv_a)
+        s = part["agg"] - torch.einsum("bfij,bfjk->bik", gmat, part["abg"])
+        s = s.contiguous()
+        return {**part, "inv_a": inv_a, "gmat": gmat, "s": s}, s
+
+    def prepare_factors(self, part, inv_s):
+        """H_f = inv(A_f) Abg_f and the factors, from inv(S)."""
+        if not self.nbin:
+            s = part["s"]
+            return BlockFactors(None, None, None, inv_s,
+                                s.new_empty((s.shape[0], 0, 0)),
+                                part["r_g"], None, None, None, s, s), None
+        hmat = torch.einsum("bfij,bfjk->bfik", part["inv_a"], part["abg"])
+        return BlockFactors(part["inv_a"], part["gmat"], hmat, inv_s,
+                            part["r_aq"], part["r_g"], part["abb"],
+                            part["agb"], part["abg"], part["agg"],
+                            part["s"]), None
 
     def _apply_scaled(self, fact, xb, xg):
         """y = A' x for the row-scaled system (block matvecs)."""

@@ -6,7 +6,8 @@ KPP-generated ``Update_RCONST_g``/``Fun_g``/``Jac_SP_g``, gas.f:275-709,
 the torch rate library, species production/loss and the Jacobian's
 per-slot weights are products with the packed stoichiometry, and the Ros3
 integrator advances all cells in one masked batch, with the block-arrow
-stage solver (block_solver.py) for every mechanism.
+stage solver (block_solver.py) for every mechanism; on a CUDA device each
+iteration replays CUDA graphs around the solver's inverses.
 
 Concentration units: mol/m3 (the reference's transport unit; bimolecular
 rate expressions carry the CONV1 factor in the mechanism file).
@@ -38,6 +39,8 @@ class GasKernel:
         self.ridx = torch.as_tensor(mech.ridx, dtype=torch.long,
                                     device=self.device)     # [nrxn, 3]
         self.block = BlockArrowSolver(mech, dtype=dtype, device=self.device)
+        # integrate's CUDA graphs: {key: (GraphedLoop, k buffer, fix buffer)}
+        self._graphs = {}
 
     # ------------------------------------------------------------------
     def rate_constants(self, env: RateEnv, fix=None) -> torch.Tensor:
@@ -107,13 +110,36 @@ class GasKernel:
     # ------------------------------------------------------------------
     def integrate(self, y0, k, fix, dt,
                   opts: rosenbrock.RosOptions = rosenbrock.RosOptions()):
-        """Advance the batch of cells by dt seconds."""
+        """Advance the batch of cells by dt seconds.
+
+        On a CUDA device the loop replays CUDA graphs
+        (``rosenbrock.GraphedLoop``): one set per batch shape, dtype, dt
+        and options, captured at the first such call and kept on the
+        kernel; each call copies k and fix into the set's buffers.
+        Elsewhere it runs op by op (``rosenbrock.integrate``)."""
+        if y0.device.type != "cuda":
+            return rosenbrock.integrate(*self._problem(k, fix), y0, dt, opts)
+        key = (tuple(y0.shape), y0.dtype, tuple(k.shape), k.dtype,
+               tuple(fix.shape), fix.dtype, y0.device, float(dt), opts)
+        if key not in self._graphs:
+            k_s, fix_s = (torch.empty_like(
+                x, memory_format=torch.contiguous_format) for x in (k, fix))
+            self._graphs[key] = (rosenbrock.GraphedLoop(
+                *self._problem(k_s, fix_s), y0, float(dt), opts), k_s, fix_s)
+        loop, k_s, fix_s = self._graphs[key]
+        k_s.copy_(k)
+        fix_s.copy_(fix)
+        return loop.run(y0)
+
+    def _problem(self, k, fix):
+        """Ros3's (fun, linop) for rate constants k and fixed species fix:
+        the tendencies and the block-arrow solver."""
         block = self.block
         linop = SimpleNamespace(
             jac=lambda y: block.assemble(self.kw_weights(y, k, fix)),
-            prepare=block.prepare, solve=block.solve)
-        return rosenbrock.integrate(lambda y: self.fun(y, k, fix), linop,
-                                    y0, dt, opts)
+            prepare=block.prepare, solve=block.solve, phases=block.phases,
+            invert=block.invert)
+        return (lambda y: self.fun(y, k, fix)), linop
 
 
 # --------------------------------------------------------------------------

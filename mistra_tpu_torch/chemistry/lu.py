@@ -68,11 +68,13 @@ def batched_inv_plain(a: torch.Tensor) -> torch.Tensor:
                                         r)
 
 
-def batched_inv(a: torch.Tensor) -> torch.Tensor:
+def batched_inv(a: torch.Tensor, out: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """inv(A) for [N, m, m]: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; written into out if given."""
     if a.device.type == "cuda":
-        return lu_cuda.batched_inv(a)
+        return lu_cuda.batched_inv(a, out=out)
     if a.device.type == "cpu":
-        return batched_inv_plain(a)
+        inv = batched_inv_plain(a)
+        return inv if out is None else out.copy_(inv)
     raise ValueError(f"batched_inv runs on cuda or cpu, not {a.device}")

@@ -19,7 +19,9 @@ mirrors; ``kernel_plan`` reads that side's plan):
   block's shared memory, 256 threads.
 
 It takes a contiguous CUDA tensor [N, m, m] of float32 or float64 with m
-in those ranges and raises on anything else.  Each launch goes on the
+in those ranges and raises on anything else; ``out=`` names a contiguous
+tensor of the same shape to write the inverse into (a buffer that a CUDA
+graph reads).  Each launch goes on the
 current stream and adds one to ``batched_inv.launches``.  The library is
 built by nvcc at first use (``kernels.build``), never at import.
 """
@@ -116,11 +118,18 @@ def kernel_plan(m: int, dtype: torch.dtype) -> dict:
             "blocks_per_sm": blocks}
 
 
-def batched_inv(a: torch.Tensor) -> torch.Tensor:
-    """inv(A) [N, m, m] of a contiguous CUDA batch [N, m, m]."""
+def batched_inv(a: torch.Tensor, out: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """inv(A) [N, m, m] of a contiguous CUDA batch [N, m, m], into out (a
+    contiguous tensor of a's shape, dtype and device) if given."""
     from ..kernels.build import load_library
     n, m = _check(a)
-    out = torch.empty_like(a)
+    if out is None:
+        out = torch.empty_like(a)
+    elif (out.shape != a.shape or out.dtype != a.dtype
+          or out.device != a.device or not out.is_contiguous()):
+        raise ValueError("lu_cuda.batched_inv: out must be a contiguous "
+                         f"{tuple(a.shape)} {a.dtype} tensor on {a.device}")
     if n == 0:
         return out
     name = "batched_inv_" + _SUFFIX[a.dtype]

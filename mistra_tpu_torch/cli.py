@@ -36,7 +36,7 @@ import torch
 
 from .boxmodel import BoxModel
 from .chemistry import diagnostics as chem_diag
-from .chemistry import lu_cuda
+from .chemistry import lu_cuda, rosenbrock
 from .config import GridParams, MistraConfig, config_from_namelist
 from .io import netcdf as ncio
 from .io import profiles as prof
@@ -214,10 +214,12 @@ def main(argv=None):
         # earlier
         tracing = stack.enter_context(contextlib.ExitStack())
         # the hand-written kernels' launches in the run's minutes (on the card;
-        # the plain versions that run on the CPU count nothing)
+        # the plain versions that run on the CPU count nothing), and the
+        # Ros3 loop's iterations, graph replays and graph captures
         bott_cuda.reset_counts()
         lu_cuda.reset_counts()
         sed_cuda.reset_counts()
+        rosenbrock.reset_counts()
         if args.profile:
             stack.enter_context(profiling.tracing())
         sync()
@@ -307,6 +309,7 @@ def main(argv=None):
                     "batched_inv": lu_cuda.batched_inv.launches,
                     "sed_advect": sed_cuda.advsed.launches,
                     "sed_splits": sed_cuda.advsed_splits.launches}
+        ros3 = dict(rosenbrock.COUNTS)
 
         with profiling.tracing(), span("checkpoint"):
             save_checkpoint(os.path.join(args.outdir, "restart.pt"), state)
@@ -326,7 +329,7 @@ def main(argv=None):
                  for k, a in snaps.items()},
               "checkpoints": ckpt["calls"],
               "checkpoint_ms": 1e3 * ckpt["seconds"] / max(ckpt["calls"], 1),
-              "kernel_launches": launches}
+              "kernel_launches": launches, "ros3": ros3}
     if args.profile:
         report["spans"] = span_report(spans, itmax)
     print(f"run report: {json.dumps(report)}")
